@@ -1,0 +1,31 @@
+"""PyTorch/CUDA port of the FediLoRA system (``src/repro`` is the JAX
+reference it is held against).
+
+The port grows slice by slice.  This package holds the multi-tenant
+adapter-serving path: model configs, the dense/prefix-VLM decode stack,
+chunked prefill, the LRU-paged adapter bank and the continuous-batching
+engine, with the per-row multi-adapter LoRA projection (BGMV) as a
+hand-written CUDA kernel for Hopper (``kernels/csrc``).
+
+Entry points (``ServingEngine``, ``AdapterStore``, ``init_params``) run on
+the CUDA device unless the caller passes ``device="cpu"``; without a CUDA
+device they raise instead of falling back.
+"""
+
+from __future__ import annotations
+
+import torch
+
+
+def resolve_device(device=None) -> torch.device:
+    """``None`` means ``"cuda"``.  A CUDA device that is not there raises —
+    the port never silently falls back to the CPU."""
+    dev = torch.device("cuda" if device is None else device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            "no CUDA device available; pass device='cpu' to run the port "
+            "on the CPU explicitly")
+    return dev
+
+
+__all__ = ["resolve_device"]

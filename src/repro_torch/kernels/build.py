@@ -1,0 +1,80 @@
+"""Build the port's CUDA kernels with ``nvcc`` into shared libraries with a
+plain C interface, and load them with ``ctypes``.
+
+A library is built at first use and cached on disk by the hash of its
+sources and flags (``build/kernels/`` at the repository root, or
+``$REPRO_TORCH_BUILD_DIR``).  Nothing here runs on import: a machine
+without ``nvcc`` can import every module of the port.
+
+    lib = build("grouped_lora_matmul")      # ctypes.CDLL, built on demand
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import tempfile
+import time
+from pathlib import Path
+
+CSRC = Path(__file__).resolve().parent / "csrc"
+NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+
+_LOADED: dict[str, ctypes.CDLL] = {}
+#: per library: {"seconds": build time (0.0 when cached), "log": nvcc output}
+BUILD_INFO: dict[str, dict] = {}
+
+
+def build_dir() -> Path:
+    env = os.environ.get("REPRO_TORCH_BUILD_DIR")
+    if env:
+        return Path(env)
+    return Path(__file__).resolve().parents[3] / "build" / "kernels"
+
+
+def nvcc_path() -> str:
+    for cand in (os.environ.get("NVCC"),
+                 os.path.join(os.environ.get("CUDA_HOME", "/usr/local/cuda"),
+                              "bin", "nvcc"),
+                 shutil.which("nvcc")):
+        if cand and os.path.isfile(cand):
+            return cand
+    raise RuntimeError("nvcc not found (set CUDA_HOME or NVCC): the port's "
+                       "CUDA kernels are built from source at first use")
+
+
+def build(name: str) -> ctypes.CDLL:
+    """Return the loaded library built from ``csrc/<name>.cu``, compiling
+    it first unless a library for the same source and flags exists."""
+    if name in _LOADED:
+        return _LOADED[name]
+    src = CSRC / f"{name}.cu"
+    digest = hashlib.sha256(src.read_bytes() + " ".join(NVCC_FLAGS).encode())
+    out = build_dir() / f"{name}-{digest.hexdigest()[:16]}.so"
+    info = {"seconds": 0.0, "log": "", "path": str(out)}
+    if not out.exists():
+        t0 = time.perf_counter()
+        out.parent.mkdir(parents=True, exist_ok=True)
+        # build to a private name, then rename: a concurrent process never
+        # loads a half-written library
+        fd, tmp = tempfile.mkstemp(suffix=".so", dir=out.parent)
+        os.close(fd)
+        proc = subprocess.run([nvcc_path(), *NVCC_FLAGS, "-o", tmp, str(src)],
+                              stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                              text=True)
+        if proc.returncode != 0:
+            os.unlink(tmp)
+            raise RuntimeError(f"nvcc failed for {src}:\n{proc.stdout}")
+        os.replace(tmp, out)
+        info["seconds"] = time.perf_counter() - t0
+        info["log"] = proc.stdout
+    _LOADED[name] = lib = ctypes.CDLL(str(out))
+    BUILD_INFO[name] = info
+    return lib
+
+
+__all__ = ["BUILD_INFO", "build", "build_dir", "nvcc_path"]
