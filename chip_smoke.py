@@ -6,12 +6,14 @@
 Phases (each raises on failure; the script then exits non-zero):
 
 1. device — the card's name and power limit (``nvidia-smi``);
-2. build — the serving path's CUDA kernel, from the sources in this
-   checkout;
+2. build — every CUDA kernel of the port, from the sources in this
+   checkout, one ``nvcc`` per source, all started together;
 3. kernels — each kernel against its plain PyTorch version on the card at
-   the serving path's shapes, with the stated tolerances, and timed with
-   CUDA events (kernel, plain version, library yardstick) beside the
-   card's bound for the same work;
+   its path's shapes, with the stated tolerances, and timed with CUDA
+   events (kernel, plain version, library yardstick) beside the card's
+   bound for the same work: the BGMV kernel at the serving shapes, the
+   ``dim_agg`` kernels at the round's leaves on fedbench-100m and at the
+   JAX package's benchmark shape ``K10_L64_r32_n4096``;
 4. serve — qwen2-0.5b at full width in bf16 (random weights from a seed),
    12 tenants of ranks 8/16/32/64 through an 8-slot adapter bank, 48
    requests with chunked prefill and ``lora_backend="grouped"``; every
@@ -19,10 +21,27 @@ Phases (each raises on failure; the script then exits non-zero):
    the kernel's launch count must equal 2 LoRA sites × 24 layers × the
    serve/prefill calls;
 5. agreement — the same model in f32 serves 16 requests through the
-   ``grouped`` and the ``gather`` backends: greedy tokens must be equal.
+   ``grouped`` and the ``gather`` backends: greedy tokens must be equal;
+6. train — fedbench-100m at full width in f32 (random base weights from a
+   seed), 10 clients with 60% missing modalities, 3 FediLoRA rounds of 4
+   clients × 10 local AdamW steps through ``aggregator="fedilora_kernel"``,
+   then ``evaluate_global(n=32)``: losses and BLEU/RSUM finite, one edited
+   module per sampled client, one host sync per round after the first (the
+   metrics fetch; ``torch.cuda.set_sync_debug_mode``, each sync's source
+   recorded), and ``dim_agg`` launched 4 times a
+   round (2 LoRA sites × A and B); one more round runs under
+   ``torch.profiler``;
+7. train agreement — two trainers from one seed, ``fedilora_kernel`` vs
+   ``fedilora`` for 3 rounds, then ``fedilora_trimmed_kernel`` vs
+   ``fedilora_trimmed`` (trim 0.25) for 2 rounds, each round from one
+   shared starting state: the same cohorts, and global adapters equal
+   within atol 1e-5 + rtol 1e-4.
 
-It prints a JSON line describing every kernel, the ``nvidia-smi`` line,
-and last ``{"ok": true, "device": {...}}``.  Without a CUDA device, or
+Each path that runs a kernel (serve: BGMV; train: ``dim_agg``; the trimmed
+run: ``dim_agg_trimmed``) is driven with the launch counts set to 0 just
+before it and read just after; a kernel that its path never launched
+fails the run.  It prints a JSON line describing every kernel, the
+``nvidia-smi`` line, and last ``{"ok": true, "device": {...}}``.  Without a CUDA device, or
 without the rest of the repository beside it, it fails and prints no
 result.  A full record (every kernel case, the compiler's register and
 shared-memory report, the serve counters) goes to
@@ -36,6 +55,7 @@ import os
 import subprocess
 import sys
 import time
+import warnings
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 SRC = os.path.join(ROOT, "src")
@@ -49,6 +69,15 @@ PEAKS = [("H200", 4.8e12, 989e12, 67e12),
 KERNEL_SHAPES = [(16, 896, 896), (16, 896, 128), (512, 896, 896),
                  (512, 896, 128)]
 N_TENANTS, RANKS, BANK_SLOTS = 12, (8, 16, 32, 64), 8
+KERNEL_SOURCES = ("grouped_lora_matmul", "dim_agg")
+
+# the round's stacked leaves on fedbench-100m (K = 4 sampled clients,
+# 12 layers, r_g = 32): (name, [K, L, P, Q], rank axis), then the JAX
+# package's benchmark shape K10_L64_r32_n4096
+DIM_AGG_SHAPES = [("wq.A", (4, 12, 32, 768), 2), ("wq.B", (4, 12, 768, 32), 3),
+                  ("wv.B", (4, 12, 256, 32), 3),
+                  ("K10_L64_r32_n4096", (10, 64, 32, 4096), 2)]
+TRAIN_ROUNDS, TRAIN_RANKS = 3, (4, 8, 8, 12, 12, 16, 16, 24, 32, 32)
 
 
 def peaks_for(name: str):
@@ -150,6 +179,91 @@ def phase_kernels(dev_name: str) -> dict:
                   f"ms plain {plain_ms:.4f} ms matmul {library_ms:.4f} ms "
                   f"bound {cases[-1]['bound_ms']:.4f} ms "
                   f"({cases[-1]['bound_by']})", flush=True)
+    return {"cases": cases}
+
+
+def phase_dim_agg(dev_name: str) -> dict:
+    """``dim_agg`` (without and with the per-client scale) and
+    ``dim_agg_trimmed`` against their plain versions at the round's leaf
+    shapes and the benchmark shape.  Bounds: bytes = K + 1 leaves of f32
+    (each input read once, the output written once) plus the small
+    operands; operations = 2K per output element for ``dim_agg``, and for
+    the trimmed mean 8K² + 6K per element (each comparison, multiply and
+    add of the K × K counting loop and the weighted sum counted as one
+    f32 operation)."""
+    import torch
+
+    from repro_torch.kernels import dim_agg as DK
+
+    bw, _, peak_f32 = peaks_for(dev_name)
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    cases = []
+    for label, shape, ax in DIM_AGG_SHAPES:
+        K, Lx, P, Q = shape
+        r = shape[ax]
+        n_out = Lx * P * Q
+        n_sets = max(2, int(120e6 // (K * n_out * 4)))
+        xs = [torch.randn(shape, generator=gen, device="cuda") * 0.05
+              for _ in range(n_sets)]
+        w = torch.rand(K, r, generator=gen, device="cuda")
+        w = w / w.sum(0, keepdim=True)
+        s = torch.rand(K, generator=gen, device="cuda")
+        # trimmed operands: duplicate values (ties by client index), a
+        # client covering fewer dimensions, the trim counts of trim 0.25
+        xq = [torch.randint(-3, 4, shape, generator=gen,
+                            device="cuda").float() * 0.01 for _ in xs]
+        p = torch.rand(K, generator=gen, device="cuda") + 0.1
+        cover = torch.ones(K, r, device="cuda")
+        cover[0, r // 2:] = 0.0
+        m = cover.sum(0)
+        t = torch.clamp(torch.minimum(torch.floor(0.25 * m),
+                                      torch.floor((m - 1) / 2)), min=0)
+        eq = "kd,kldn->ldn" if ax == 2 else "kd,klmd->lmd"
+        ws = w * s[:, None]
+        variants = [
+            ("dim_agg", None,
+             lambda x: DK.dim_agg_cuda(x, w, rank_axis=ax),
+             lambda x: DK.plain_dim_agg(x, w, rank_axis=ax),
+             lambda x: torch.einsum(eq, w, x), xs, 2 * K),
+            ("dim_agg", "scaled",
+             lambda x: DK.dim_agg_cuda(x, w, s, rank_axis=ax),
+             lambda x: DK.plain_dim_agg(x, w, s, rank_axis=ax),
+             lambda x: torch.einsum(eq, ws, x), xs, 2 * K + 1),
+            ("dim_agg_trimmed", None,
+             lambda x: DK.dim_agg_trimmed_cuda(x, p, cover, t, rank_axis=ax),
+             lambda x: DK.plain_dim_agg_trimmed(x, p, cover, t,
+                                                rank_axis=ax),
+             None, xq, 8 * K * K + 6 * K)]
+        for name, variant, kern, plain, lib, inputs, ops_per in variants:
+            y = kern(inputs[0])
+            torch.cuda.synchronize()
+            ref = plain(inputs[0])
+            err = (y - ref).abs()
+            # f32 sums of K terms in another order: a few ulp of the terms
+            if not bool((err <= 1e-6 + 1e-5 * ref.abs()).all()):
+                raise AssertionError(
+                    f"{name} {label} {variant}: max err {err.max().item():.3e}"
+                    f" beyond atol 1e-6 + rtol 1e-5")
+            ms = cuda_time_ms(kern, [(x,) for x in inputs])
+            plain_ms = cuda_time_ms(plain, [(x,) for x in inputs])
+            lib_ms = (cuda_time_ms(lib, [(x,) for x in inputs])
+                      if lib is not None else None)
+            nbytes = (K + 1) * n_out * 4 + K * r * 4 + K * 4
+            t_bytes = nbytes / bw * 1e3
+            t_ops = ops_per * n_out / peak_f32 * 1e3
+            cases.append({
+                "kernel": name, "variant": variant, "shape": label,
+                "dims": list(shape), "rank_axis": ax,
+                "max_abs_err": err.max().item(), "ms": ms,
+                "plain_ms": plain_ms, "library_ms": lib_ms, "bytes": nbytes,
+                "ops": ops_per * n_out, "bound_ms": max(t_bytes, t_ops),
+                "bound_by": "bytes" if t_bytes >= t_ops else "operations"})
+            c = cases[-1]
+            lib_s = "n/a" if lib_ms is None else f"{lib_ms:.4f} ms"
+            print(f"kernel {name}{'+' + variant if variant else ''} {label}: "
+                  f"err {c['max_abs_err']:.3e} kernel {ms:.4f} ms plain "
+                  f"{plain_ms:.4f} ms einsum {lib_s} bound "
+                  f"{c['bound_ms']:.4f} ms ({c['bound_by']})", flush=True)
     return {"cases": cases}
 
 
@@ -271,6 +385,219 @@ def phase_agreement() -> dict:
     return {"requests": len(reqs), "identical": True}
 
 
+def fed_setup(aggregator: str, *, base=None, **fed_kw):
+    """fedbench-100m as ``examples/federated_finetune.py`` sets it up: the
+    synthetic task with seed 1, 10 clients of heterogeneous sizes, 80/20
+    train/eval shards, 60% missing modalities, ranks 4..32, 4 clients a
+    round, batch 8, 10 local steps, editing on."""
+    from repro_torch.configs import get_config
+    from repro_torch.core.editing import EditConfig
+    from repro_torch.data import (SyntheticTaskConfig, apply_missing_modality,
+                                  heterogeneous_sizes,
+                                  make_federated_datasets)
+    from repro_torch.federated import FederatedConfig, FederatedTrainer
+    from repro_torch.models.transformer import init_params
+    from repro_torch.optim import OptimizerConfig
+
+    task = SyntheticTaskConfig(seed=1)
+    sizes = heterogeneous_sizes(10, 900, seed=1)
+    clients, gtest = make_federated_datasets(task, 10, sizes, seed=1)
+    tr, ev = [], []
+    for k, d in enumerate(clients):
+        n_tr = int(d["tokens"].shape[0] * 0.8)
+        tr.append(apply_missing_modality({kk: v[:n_tr] for kk, v in d.items()},
+                                         0.6, task.prompt_len, seed=k))
+        ev.append({kk: v[n_tr:] for kk, v in d.items()})
+    fed = FederatedConfig(num_clients=10, sample_rate=0.4, ranks=TRAIN_RANKS,
+                          local_steps=10, batch_size=8, aggregator=aggregator,
+                          edit=EditConfig(), **fed_kw)
+    opt = OptimizerConfig(peak_lr=1e-3, total_steps=TRAIN_ROUNDS * 10)
+    cfg = get_config("fedbench-100m")
+    if base is None:
+        base = init_params(cfg, seed=42)
+    return FederatedTrainer(cfg, fed, opt, tr, ev, gtest, base_params=base)
+
+
+def phase_train() -> dict:
+    """3 FediLoRA rounds on fedbench-100m through ``fedilora_kernel``."""
+    import math
+
+    import torch
+
+    from repro_torch.kernels import dim_agg as DK
+    from repro_torch.kernels import grouped_lora_matmul as glm
+
+    trainer = fed_setup("fedilora_kernel")
+    n_params = sum(v.numel() for v in _leaves(trainer.base_params))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    glm.reset_launches()
+    DK.reset_launches()
+    walls, recs, syncs = [], [], []
+    for _ in range(TRAIN_ROUNDS):
+        # every synchronising CUDA call warns; record where each came from
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            torch.cuda.set_sync_debug_mode("warn")
+            t0 = time.perf_counter()
+            recs.append(trainer.run_round())
+            walls.append(time.perf_counter() - t0)
+            torch.cuda.set_sync_debug_mode("default")
+        syncs.append([f"{os.path.relpath(w.filename, ROOT)}:{w.lineno}"
+                      for w in caught if "synchroniz" in str(w.message)])
+    # after the first round (one-time set-up) a round makes exactly one
+    # host sync: its metrics fetch
+    if not syncs[0] or any(len(s_) != 1 for s_ in syncs[1:]):
+        raise AssertionError(f"host syncs per round {syncs}, expected one "
+                             "(the metrics fetch) after the first round")
+    t0 = time.perf_counter()
+    ev = trainer.evaluate_global(n=32)
+    eval_s = time.perf_counter() - t0
+    launches = dict(DK.launches)
+    if glm.launches:
+        raise AssertionError("the train path launched the BGMV kernel")
+    for rec in recs:
+        if not math.isfinite(rec["train_loss"]):
+            raise AssertionError(f"round {rec['round']}: loss "
+                                 f"{rec['train_loss']}")
+        if len(rec["edited_layers"]) != len(rec["sampled"]):
+            raise AssertionError(f"round {rec['round']}: edited "
+                                 f"{rec['edited_layers']} for sampled "
+                                 f"{rec['sampled']}")
+    want = 4 * TRAIN_ROUNDS
+    if launches["dim_agg"] != want or launches["dim_agg_trimmed"]:
+        raise AssertionError(f"dim_agg launches {launches}, expected "
+                             f"{want} dim_agg (2 sites x A, B x "
+                             f"{TRAIN_ROUNDS} rounds) and no trimmed")
+    if not all(math.isfinite(ev[k]) for k in ("loss", "bleu", "rsum")):
+        raise AssertionError(f"evaluate_global: {ev}")
+    prof = profile_round(trainer)
+    out = {"model": "fedbench-100m", "params": n_params, "profile": prof,
+           "rounds": recs, "round_wall_s": walls, "host_syncs": syncs,
+           "rounds_per_s": TRAIN_ROUNDS / sum(walls),
+           "eval_global": ev, "eval_wall_s": eval_s,
+           "launches": launches,
+           "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9}
+    print(f"train (smoke run, not a benchmark): fedbench-100m f32 "
+          f"{n_params / 1e6:.1f}M params, {TRAIN_ROUNDS} rounds x 4 clients "
+          f"x 10 steps, losses "
+          f"{[round(r['train_loss'], 4) for r in recs]}, round walls "
+          f"{[round(w, 3) for w in walls]} s ({out['rounds_per_s']:.3f} "
+          f"rounds/s, the first includes warm-up), host syncs per round "
+          f"{syncs}, eval_global "
+          f"{ev} in {eval_s:.2f} s, dim_agg launches {launches['dim_agg']}, "
+          f"peak {out['peak_mem_gb']:.2f} GB", flush=True)
+    return out
+
+
+def profile_round(trainer) -> dict:
+    """One more round under ``torch.profiler`` (after the counted rounds):
+    the round's wall, the device time summed over its kernels, and the
+    kernels that took the most device time."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        trainer.run_round()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    # device-side rows only (kernels, copies, memsets): the CPU op rows
+    # report their kernels' time again
+    rows = [e for e in prof.key_averages()
+            if e.device_type == torch.autograd.DeviceType.CUDA]
+    rows.sort(key=lambda e: -e.self_device_time_total)
+    device_s = sum(e.self_device_time_total for e in rows) / 1e6
+    out = {"wall_s": wall, "device_s": device_s,
+           "device_busy_share": device_s / wall,
+           "kernel_launches": sum(e.count for e in rows),
+           "top": [{"name": e.key[:80], "count": e.count,
+                    "device_ms": e.self_device_time_total / 1e3}
+                   for e in rows[:8]]}
+    print(f"profile (one round, profiler on): wall {wall:.3f} s, device "
+          f"{device_s:.3f} s busy ({out['device_busy_share']:.1%}), "
+          f"{out['kernel_launches']} kernel launches; top: "
+          + "; ".join(f"{t['name'][:40]} {t['device_ms']:.1f} ms x"
+                      f"{t['count']}" for t in out["top"][:4]), flush=True)
+    return out
+
+
+def _leaves(tree):
+    if isinstance(tree, dict):
+        return [x for v in tree.values() for x in _leaves(v)]
+    return [tree]
+
+
+def _adapter_err(a, b) -> dict:
+    """Largest |a - b| and whether every element is within atol 1e-5 +
+    rtol 1e-4 of b."""
+    worst, ok = 0.0, True
+    for n in b:
+        for m in ("A", "B"):
+            d = (a[n][m] - b[n][m]).abs()
+            worst = max(worst, d.max().item())
+            ok &= bool((d <= 1e-5 + 1e-4 * b[n][m].abs()).all())
+    return {"max_abs_err": worst, "within_tol": ok}
+
+
+def _sync_adapters(dst, src) -> None:
+    """Give trainer ``dst`` copies of ``src``'s adapters (global, previous
+    global, stacked clients)."""
+    import torch
+
+    def clone(tree):
+        return {n: {m: torch.clone(e[m]) for m in ("A", "B")}
+                for n, e in tree.items()}
+
+    dst.server.global_lora = clone(src.server.global_lora)
+    dst.server.prev_global = clone(src.server.prev_global)
+    dst.stacked_lora = clone(src.stacked_lora)
+
+
+def phase_train_agreement() -> dict:
+    """Kernel and plain aggregators in two trainers from one seed.  After
+    each round the plain trainer takes the kernel trainer's adapters, so
+    every round compares the two aggregations from one starting state:
+    the plain entries return strided (non-contiguous) adapters, the next
+    round's GEMMs then round differently in the last bit, and AdamW (which
+    divides by each gradient's magnitude) grows that into 1e-4 by the
+    second round."""
+    from repro_torch.kernels import dim_agg as DK
+
+    out = {}
+    for kern, plain, rounds, kw in [
+            ("fedilora_kernel", "fedilora", 3, {}),
+            ("fedilora_trimmed_kernel", "fedilora_trimmed", 2,
+             {"trim_frac": 0.25})]:
+        a = fed_setup(kern, **kw)
+        b = fed_setup(plain, base=a.base_params, **kw)
+        DK.reset_launches()
+        errs = []
+        for _ in range(rounds):
+            ra, rb = a.run_round(), b.run_round()
+            if ra["sampled"] != rb["sampled"]:
+                raise AssertionError(f"{kern}: cohorts {ra['sampled']} vs "
+                                     f"{rb['sampled']}")
+            errs.append(_adapter_err(a.server.global_lora,
+                                     b.server.global_lora))
+            _sync_adapters(b, a)
+        launches = dict(DK.launches)
+        out[kern] = {"rounds": rounds, "errors": errs, "launches": launches}
+        print(f"agreement: {kern} vs {plain}, {rounds} round(s): global "
+              f"adapter max err {[e['max_abs_err'] for e in errs]}, "
+              f"launches {launches}", flush=True)
+        if not all(e["within_tol"] for e in errs):
+            raise AssertionError(f"{kern} vs {plain}: global adapters differ "
+                                 f"beyond atol 1e-5 + rtol 1e-4: {errs}")
+        key = "dim_agg_trimmed" if "trimmed" in kern else "dim_agg"
+        if launches[key] != 4 * rounds:
+            raise AssertionError(f"{kern}: launches {launches}, expected "
+                                 f"{4 * rounds} {key}")
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -290,16 +617,22 @@ def main() -> int:
     dev_name = torch.cuda.get_device_name(0)
     print(f"device: {smi}", flush=True)
 
+    from concurrent.futures import ThreadPoolExecutor
+
     from repro_torch.kernels import build as kbuild
     t0 = time.perf_counter()
-    kbuild.build("grouped_lora_matmul")
+    with ThreadPoolExecutor(len(KERNEL_SOURCES)) as pool:   # nvcc in parallel
+        list(pool.map(kbuild.build, KERNEL_SOURCES))
     build_s = time.perf_counter() - t0
     print(f"build: {build_s:.2f} s "
           f"({', '.join(sorted(kbuild.BUILD_INFO))})", flush=True)
 
     kern = phase_kernels(dev_name)
+    dagg = phase_dim_agg(dev_name)
     served = phase_serve()
     agree = phase_agreement()
+    trained = phase_train()
+    train_agree = phase_train_agreement()
 
     cases = kern["cases"]
     # headline: the decode step's shape and dtypes on the serve path
@@ -321,16 +654,41 @@ def main() -> int:
         "bound_ms": head["bound_ms"], "bound_by": head["bound_by"],
         "shape": {k: head[k] for k in ("M", "K", "N", "G", "r", "x_dtype",
                                        "bank_dtype")}}
+    records = [record]
+    # headline for both dim_agg kernels: the round's wq.A leaf, unscaled
+    # (the fedilora_kernel path); every case is in build/chip_smoke.json
+    for name, line, launches, lib_call in [
+            ("dim_agg", 115, trained["launches"]["dim_agg"],
+             "torch.einsum('kd,kldn->ldn', w, x)"),
+            ("dim_agg_trimmed", 88, train_agree["fedilora_trimmed_kernel"][
+                "launches"]["dim_agg_trimmed"], None)]:
+        mine = [c for c in dagg["cases"] if c["kernel"] == name]
+        h = next(c for c in mine if c["shape"] == "wq.A"
+                 and c["variant"] is None)
+        records.append({
+            "name": name, "route": "cuda",
+            "source": "src/repro_torch/kernels/csrc/dim_agg.cu",
+            "replaces": f"src/repro/kernels/dim_agg.py:{line}",
+            "launches": launches,
+            "max_abs_err": max(c["max_abs_err"] for c in mine),
+            "ms": h["ms"], "plain_ms": h["plain_ms"],
+            "library_ms": h["library_ms"],
+            "library_call": lib_call or "none: no one PyTorch call computes "
+                                        "a trimmed mean",
+            "bound_ms": h["bound_ms"], "bound_by": h["bound_by"],
+            "shape": {"dims": h["dims"], "rank_axis": h["rank_axis"],
+                      "dtype": "float32"}})
     out_dir = os.path.join(ROOT, "build")
     os.makedirs(out_dir, exist_ok=True)
     with open(os.path.join(out_dir, "chip_smoke.json"), "w") as f:
         json.dump({"device": smi, "build_s": build_s,
                    "build_logs": {k: v["log"]
                                   for k, v in kbuild.BUILD_INFO.items()},
-                   "kernels": [record],
-                   "kernel_cases": cases, "serve": served,
-                   "agreement": agree}, f, indent=1)
-    print(json.dumps({"kernels": [record]}))
+                   "kernels": records,
+                   "kernel_cases": cases, "dim_agg_cases": dagg["cases"],
+                   "serve": served, "agreement": agree, "train": trained,
+                   "train_agreement": train_agree}, f, indent=1)
+    print(json.dumps({"kernels": records}))
     print(smi)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": dev_name,

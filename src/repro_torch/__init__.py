@@ -1,15 +1,23 @@
 """PyTorch/CUDA port of the FediLoRA system (``src/repro`` is the JAX
 reference it is held against).
 
-The port grows slice by slice.  This package holds the multi-tenant
-adapter-serving path: model configs, the dense/prefix-VLM decode stack,
-chunked prefill, the LRU-paged adapter bank and the continuous-batching
-engine, with the per-row multi-adapter LoRA projection (BGMV) as a
-hand-written CUDA kernel for Hopper (``kernels/csrc``).
+The port grows slice by slice.  This package holds:
 
-Entry points (``ServingEngine``, ``AdapterStore``, ``init_params``) run on
-the CUDA device unless the caller passes ``device="cpu"``; without a CUDA
-device they raise instead of falling back.
+* the federated FediLoRA round — synthetic multimodal corpora with missing
+  modalities, the training forward and loss, AdamW over rank-masked
+  adapters, layer-wise editing and the aggregation registry, in one
+  resident-state ``FederatedTrainer``, with dimension-wise aggregation as
+  hand-written CUDA kernels for Hopper (``kernels/csrc/dim_agg.cu``);
+* the multi-tenant adapter-serving path: model configs, the
+  dense/prefix-VLM decode stack, chunked prefill, the LRU-paged adapter
+  bank and the continuous-batching engine, with the per-row multi-adapter
+  LoRA projection (BGMV) as a hand-written CUDA kernel
+  (``kernels/csrc/grouped_lora_matmul.cu``).
+
+Entry points (``FederatedTrainer``, ``ServingEngine``, ``AdapterStore``,
+``init_params``) run on the CUDA device unless the caller passes
+``device="cpu"``; without a CUDA device they raise instead of falling
+back.
 """
 
 from __future__ import annotations

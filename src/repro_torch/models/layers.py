@@ -1,5 +1,5 @@
-"""Layers of the dense decode stack (port of ``repro/models/layers.py``, the
-parts serving needs).
+"""Layers of the dense attention stack (port of ``repro/models/layers.py``:
+the training forward and the decode paths of attn / attn_local stacks).
 
 Plain functions over explicit parameter dictionaries, with the reference's
 conventions: weights are ``[in_dim, out_dim]`` so forward is ``x @ w``;
@@ -242,6 +242,27 @@ def multihead_attention(q, k, v, *, causal: bool, window: int = 0,
     return out.to(v.dtype)
 
 
+def attention_forward(params, x, cfg: ModelConfig, *, kind: str, lora=None,
+                      lora_scale: float = 1.0, positions=None, pad_mask=None):
+    """Full-sequence self-attention sublayer (the caller adds the residual).
+    ``kind``: "attn" (global causal) or "attn_local" (sliding window)."""
+    if kind not in ("attn", "attn_local"):
+        raise NotImplementedError(f"attention_forward covers attn and "
+                                  f"attn_local, not {kind!r}")
+    q, k, v = _qkv(params, x, x, cfg, lora, lora_scale)
+    B, S = x.shape[0], x.shape[1]
+    if positions is None:
+        positions = torch.arange(S, device=x.device)
+    q = apply_rope(q, positions, cfg.rope_theta)
+    k = apply_rope(k, positions, cfg.rope_theta)
+    window = cfg.sliding_window if kind == "attn_local" else 0
+    out = multihead_attention(q, k, v, causal=True, window=window,
+                              softcap=cfg.attn_logit_softcap,
+                              q_pos=positions, k_pos=positions,
+                              pad_mask=pad_mask)
+    return out.reshape(B, S, -1) @ params["wo"]
+
+
 def attention_decode_batch(params, x, cache, cfg: ModelConfig, *, kind: str,
                            pos, valid=None, lora=None,
                            lora_scale: float = 1.0, lora_idx=None,
@@ -321,5 +342,6 @@ def mlp_forward(params, x):
 
 
 __all__ = ["NEG_INF", "apply_rope", "attention_decode_batch",
+           "attention_forward",
            "init_attention", "init_mlp", "mlp_forward", "multihead_attention",
            "normal", "rms_norm"]

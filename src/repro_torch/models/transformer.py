@@ -1,6 +1,7 @@
-"""Transformer assembly for the serving path (port of
-``repro/models/transformer.py``: init, LoRA specs, decode cache and the
-batched multi-adapter ``decode_chunk``).
+"""Transformer assembly (port of ``repro/models/transformer.py``: init,
+LoRA specs, the training forward and masked next-token loss, the decode
+cache, single-adapter ``decode_step`` and the batched multi-adapter
+``decode_chunk``).
 
 Parameters keep the reference's tree: ``embed``, ``final_ln``, optional
 ``unembed`` / ``vision_proj``, and ``blocks.s{i}.{ln1,attn,ln2,ffn}`` whose
@@ -14,6 +15,7 @@ from __future__ import annotations
 from typing import Any
 
 import torch
+import torch.nn.functional as F
 
 from repro_torch import resolve_device
 from repro_torch.core.lora import LoRASpec
@@ -138,6 +140,86 @@ def _layer(tree: Tree, l: int) -> Tree:
 
 
 # ---------------------------------------------------------------------------
+# forward (training / evaluation loss)
+# ---------------------------------------------------------------------------
+
+def _run_blocks(cfg: ModelConfig, blocks: Tree, lora: Tree | None, x, *,
+                lora_scale: float, positions, pad_mask=None):
+    """The block stack over [B, S, d]: per block, each pattern sublayer's
+    pre-norm attention and SwiGLU feed-forward, both residual."""
+    lora = {k: v for k, v in (lora or {}).items() if k.startswith("s")}
+    for l in range(cfg.num_blocks):
+        bp = _layer(blocks, l)
+        lt = _layer(lora, l)
+        for i, kind in enumerate(cfg.pattern):
+            pre = f"s{i}"
+            h = L.rms_norm(x, bp[pre]["ln1"], cfg.norm_eps)
+            x = x + L.attention_forward(
+                bp[pre]["attn"], h, cfg, kind=kind,
+                lora=_sub_lora(lt, f"{pre}.attn"), lora_scale=lora_scale,
+                positions=positions, pad_mask=pad_mask)
+            if "ffn" in bp[pre]:
+                h2 = L.rms_norm(x, bp[pre]["ln2"], cfg.norm_eps)
+                x = x + L.mlp_forward(bp[pre]["ffn"], h2)
+    return x
+
+
+def forward(cfg: ModelConfig, params: Tree, tokens, *, lora=None,
+            lora_scale: float = 1.0, vision=None, pad_mask=None,
+            last_only: bool = False):
+    """Training / prefill forward.  ``vision`` [B, P, vision_dim] is
+    projected into a P-position prefix ahead of the text (prefix VLM).
+    Returns (logits [B, S, V] — [B, 1, V] with ``last_only`` —, aux loss
+    0.0: the port's dense stacks have no MoE)."""
+    _check_supported(cfg)
+    x = params["embed"][tokens]
+    B, S = tokens.shape
+    positions = torch.arange(S, device=x.device)
+    n_prefix = 0
+    if cfg.family == "vlm" and vision is not None:
+        pre = vision.to(x.dtype) @ params["vision_proj"]        # [B, P, d]
+        x = torch.cat([pre, x], dim=1)
+        n_prefix = pre.shape[1]
+        positions = torch.arange(S + n_prefix, device=x.device)
+        if pad_mask is not None:
+            pad_mask = torch.cat([pad_mask.new_ones((B, n_prefix)),
+                                  pad_mask], dim=1)
+    x = _run_blocks(cfg, params["blocks"], lora, x, lora_scale=lora_scale,
+                    positions=positions, pad_mask=pad_mask)
+    x = L.rms_norm(x, params["final_ln"], cfg.norm_eps)
+    if n_prefix:
+        x = x[:, n_prefix:]
+    if last_only:
+        x = x[:, -1:]
+    if cfg.tie_embeddings:
+        return x @ params["embed"].T, 0.0
+    return x @ params["unembed"], 0.0
+
+
+def loss_fn(cfg: ModelConfig, params: Tree, lora: Tree | None, batch: dict,
+            lora_scale: float = 1.0):
+    """Masked next-token cross-entropy.  ``batch``: tokens, labels,
+    loss_mask, optional image and image_mask (a zero ``image_mask`` row
+    zeroes that example's vision prefix: the missing-modality path).
+    Returns (loss, {"loss", "aux", "acc"}), all 0-d f32 tensors."""
+    vision = batch.get("image")
+    if vision is not None and "image_mask" in batch:
+        vision = (vision * batch["image_mask"][:, None, None]).to(vision.dtype)
+    logits, aux = forward(cfg, params, batch["tokens"], lora=lora,
+                          lora_scale=lora_scale, vision=vision)
+    logits = logits.float()
+    logp = F.log_softmax(logits, dim=-1)
+    labels = batch["labels"].long()
+    ll = torch.gather(logp, -1, labels[..., None])[..., 0]
+    mask = batch["loss_mask"].float()
+    denom = torch.clamp(mask.sum(), min=1.0)
+    loss = -(ll * mask).sum() / denom
+    acc = ((logits.argmax(-1) == labels) * mask).sum() / denom
+    aux = torch.zeros((), dtype=torch.float32, device=logits.device) + aux
+    return loss + aux, {"loss": loss, "aux": aux, "acc": acc}
+
+
+# ---------------------------------------------------------------------------
 # decode
 # ---------------------------------------------------------------------------
 
@@ -159,6 +241,19 @@ def init_cache(cfg: ModelConfig, params: Tree, batch: int,
     return cache
 
 
+def decode_step(cfg: ModelConfig, params: Tree, cache: Tree, tokens, pos, *,
+                lora=None, lora_scale: float = 1.0, embeds=None):
+    """One-token decode with one adapter for the whole batch.  ``tokens``
+    int [B] (or ``embeds`` [B, 1, d], which replaces the token embedding —
+    the vision prefix streams through it); ``pos``: int, the current
+    position.  ``lora`` leaves are [L, ...] (the training layout).  The
+    cache is updated in place.  Returns (logits f32 [B, V], cache)."""
+    x = embeds if embeds is not None else params["embed"][tokens][:, None, :]
+    p = torch.full((x.shape[0],), int(pos), dtype=torch.long, device=x.device)
+    return decode_chunk(cfg, params, cache, x, p, adapters=lora,
+                        lora_scale=lora_scale)
+
+
 def decode_chunk(cfg: ModelConfig, params: Tree, cache: Tree, embeds, pos, *,
                  adapters=None, adapter_idx=None, lora_scale: float = 1.0,
                  valid=None, lora_kernel: bool = False, logits: bool = True,
@@ -169,8 +264,9 @@ def decode_chunk(cfg: ModelConfig, params: Tree, cache: Tree, embeds, pos, *,
 
     ``embeds``: [B, C, d]; ``pos``: [B] per-row first position; ``valid``:
     optional [B, C] ragged-tail mask.  ``adapters``: LoRA bank with leaves
-    [L, G, ...] (scan-major); ``adapter_idx``: int [B] per-row bank index.
-    ``lora_kernel=True`` routes every LoRA site through the BGMV kernel.
+    [L, G, ...] (scan-major); ``adapter_idx``: int [B] per-row bank index
+    (``None``: ``adapters`` is one adapter, leaves [L, ...], for every
+    row).  ``lora_kernel=True`` routes every LoRA site through the BGMV kernel.
     ``logits=False`` skips the final norm and unembed (required when
     C > 1).  ``cache`` (``init_cache`` layout) is updated in place and
     returned.  Returns (logits f32 [B, V] | None, cache)."""
@@ -205,5 +301,5 @@ def decode_chunk(cfg: ModelConfig, params: Tree, cache: Tree, embeds, pos, *,
     return out.float(), cache
 
 
-__all__ = ["decode_chunk", "init_cache", "init_params", "lora_specs",
-           "torch_dtype"]
+__all__ = ["decode_chunk", "decode_step", "forward", "init_cache",
+           "init_params", "loss_fn", "lora_specs", "torch_dtype"]

@@ -224,6 +224,20 @@ class AdapterStore:
 
     # ---------------------------------------------------------- constructors
     @classmethod
+    def from_trainer(cls, trainer, *, slots: int | None = None, device=None,
+                     dispatch_count=None,
+                     telemetry: Telemetry | None = None) -> "AdapterStore":
+        """Register every personalized client adapter of a live
+        ``FederatedTrainer`` (ids ``"client0"``, ``"client1"``, ...)."""
+        adapters = trainer.export_adapters()
+        store = cls(slots=slots or len(adapters), rank=trainer.lcfg.rank,
+                    device=device, dispatch_count=dispatch_count,
+                    telemetry=telemetry)
+        for cid, (lora, rank) in adapters.items():
+            store.register(cid, lora, rank)
+        return store
+
+    @classmethod
     def from_checkpoint(cls, dirpath: str, *, slots: int | None = None,
                         device=None, dispatch_count=None,
                         telemetry: Telemetry | None = None) -> "AdapterStore":

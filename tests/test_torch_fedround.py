@@ -1,0 +1,145 @@
+"""A whole federated run of the port against the JAX package on the CPU:
+two ``FederatedTrainer``s on ``fedbench-tiny`` (3 clients, 2 local steps,
+2 rounds) built from the same numpy corpora, the port's started from the
+reference's initial state through ``repro_torch.interop``.
+
+Held exactly: ``sampled``, ``edited_layers``, the post-pruning ranks and
+the greedy tokens behind BLEU/RSUM.  Held within tolerance: ``train_loss``
+(atol 1e-5) and the global and stacked adapters.  For the adapters the
+tolerance follows AdamW: it divides each update by the gradient's own
+magnitude, so where a gradient is as small as eps a last-bit difference
+can move that one element by up to a whole step (lr = 3e-3).  So every
+element must agree within 4 steps' worth (2 rounds × 2 local steps × lr)
+and the mean difference must stay under 1e-6."""
+
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+torch.set_num_threads(1)
+
+import jax  # noqa: E402
+
+from repro.configs import get_config  # noqa: E402
+from repro.core.editing import EditConfig  # noqa: E402
+from repro.data.synthetic import (SyntheticTaskConfig,  # noqa: E402
+                                  make_federated_datasets)
+from repro.federated import FederatedConfig, FederatedTrainer  # noqa: E402
+from repro.optim import OptimizerConfig  # noqa: E402
+from repro_torch import data as TD  # noqa: E402
+from repro_torch.configs import get_config as t_config  # noqa: E402
+from repro_torch.core.editing import EditConfig as TEdit  # noqa: E402
+from repro_torch.federated import FaultConfig as TFault  # noqa: E402
+from repro_torch.federated import FederatedConfig as TFed  # noqa: E402
+from repro_torch.federated import FederatedTrainer as TTrainer  # noqa: E402
+from repro_torch.interop import load_reference_state  # noqa: E402
+from repro_torch.optim import OptimizerConfig as TOpt  # noqa: E402
+from repro_torch.serving import AdapterStore  # noqa: E402
+
+LR, STEPS, ROUNDS = 3e-3, 2, 2
+SIZES = np.array([40, 50, 60])
+
+
+def _pair(aggregator, **kw):
+    """(reference trainer, port trainer) on identical corpora and state."""
+    clients, gtest = make_federated_datasets(SyntheticTaskConfig(), 3, SIZES)
+    t_clients, t_gtest = TD.make_federated_datasets(TD.SyntheticTaskConfig(),
+                                                    3, SIZES)
+    fed = dict(num_clients=3, sample_rate=1.0, ranks=(4, 8, 16),
+               local_steps=STEPS, batch_size=4, aggregator=aggregator, **kw)
+    ref = FederatedTrainer(
+        get_config("fedbench-tiny"), FederatedConfig(edit=EditConfig(), **fed),
+        OptimizerConfig(peak_lr=LR, total_steps=50), clients, clients, gtest,
+        seed=0)
+    port = TTrainer(
+        t_config("fedbench-tiny"), TFed(edit=TEdit(), **fed),
+        TOpt(peak_lr=LR, total_steps=50), t_clients, t_clients, t_gtest,
+        seed=0, device="cpu")
+    load_reference_state(
+        port, base_params=jax.device_get(ref.base_params),
+        global_lora=jax.device_get(ref.server.global_lora),
+        prev_global=jax.device_get(ref.server.prev_global),
+        stacked_lora=jax.device_get(ref.stacked_lora))
+    return ref, port
+
+
+def _assert_adapters_close(port_tree, ref_tree, what):
+    ref_tree = jax.device_get(ref_tree)
+    for n in ref_tree:
+        for m in ("A", "B"):
+            diff = np.abs(port_tree[n][m].numpy() - ref_tree[n][m])
+            assert diff.max() <= ROUNDS * STEPS * LR, (what, n, m, diff.max())
+            assert diff.mean() <= 1e-6, (what, n, m, diff.mean())
+
+
+@pytest.mark.parametrize("aggregator,kw", [
+    ("fedavg", {}),
+    ("hetlora", dict(hetlora_prune_gamma=0.9)),
+    ("fedilora", {}),
+    ("fedilora_kernel", {}),
+], ids=["fedavg", "hetlora_prune", "fedilora", "fedilora_kernel"])
+def test_rounds_match_reference(aggregator, kw):
+    ref, port = _pair(aggregator, **kw)
+    for _ in range(ROUNDS):
+        rr, rp = ref.run_round(), port.run_round()
+        assert rp["round"] == rr["round"]
+        assert rp["sampled"] == rr["sampled"]
+        assert rp["edited_layers"] == rr["edited_layers"]
+        np.testing.assert_allclose(rp["train_loss"], rr["train_loss"],
+                                   atol=1e-5)
+        np.testing.assert_array_equal(port.client_ranks, ref.client_ranks)
+        _assert_adapters_close(port.server.global_lora, ref.server.global_lora,
+                               "global")
+        _assert_adapters_close(port.stacked_lora, ref.stacked_lora, "stacked")
+    assert port.dispatch_count["round_step"] == ROUNDS
+    if aggregator == "hetlora":
+        assert list(port.client_ranks) != [4, 8, 16]     # pruning happened
+
+
+def test_evaluation_matches_reference():
+    """Global and personalized evaluation after two fedilora_kernel rounds:
+    the same greedy tokens, hence equal BLEU/RSUM; losses within 1e-4."""
+    ref, port = _pair("fedilora_kernel")
+    for _ in range(ROUNDS):
+        ref.run_round()
+        port.run_round()
+    for ev in ("evaluate_global", "evaluate_personalized"):
+        r = getattr(ref, ev)(n=8)
+        p = getattr(port, ev)(n=8)
+        assert p["bleu"] == r["bleu"] and p["rsum"] == r["rsum"], (ev, r, p)
+        np.testing.assert_allclose(p["loss"], r["loss"], atol=1e-4)
+        np.testing.assert_allclose(p["acc"], r["acc"], atol=1e-6)
+    assert port.dispatch_count["population_eval"] == 1
+    assert port.dispatch_count["generate"] == 1
+    # train → serve: the exported personalized adapters register as-is
+    exported = port.export_adapters()
+    assert [exported[f"client{k}"][1] for k in range(3)] == [4, 8, 16]
+    store = AdapterStore.from_trainer(port, device="cpu")
+    assert store.ranks == {f"client{k}": r for k, r in enumerate((4, 8, 16))}
+
+
+def test_unported_options_raise():
+    clients, gtest = TD.make_federated_datasets(TD.SyntheticTaskConfig(), 3,
+                                                SIZES)
+    args = (t_config("fedbench-tiny"),)
+    rest = (TOpt(), clients, clients, gtest)
+    fed = dict(num_clients=3, sample_rate=1.0, ranks=(4, 8, 16),
+               local_steps=1, batch_size=4)
+    with pytest.raises(NotImplementedError):
+        TTrainer(*args, TFed(paged=True, **fed), *rest, device="cpu")
+    with pytest.raises(NotImplementedError):
+        TTrainer(*args, TFed(faults=TFault(enabled=True, dropout_rate=0.5),
+                             **fed), *rest, device="cpu")
+    with pytest.raises(NotImplementedError):
+        TTrainer(*args, TFed(**fed), *rest, device="cpu", mesh=object())
+    flora = TTrainer(*args, TFed(aggregator="flora", **fed), *rest,
+                     device="cpu")
+    with pytest.raises(NotImplementedError):
+        flora.run_round()
+    bogus = TTrainer(*args, TFed(aggregator="nope", **fed), *rest,
+                     device="cpu")
+    with pytest.raises(ValueError, match="unknown aggregator"):
+        bogus.run_round()
+    if not torch.cuda.is_available():
+        with pytest.raises(RuntimeError, match="CUDA"):
+            TTrainer(*args, TFed(**fed), *rest)
