@@ -14,15 +14,27 @@ Phases (each raises on failure; the script then exits non-zero):
    bound for the same work: the BGMV kernel at the serving shapes, the
    ``dim_agg`` kernels at the round's leaves on fedbench-100m and at the
    JAX package's benchmark shape ``K10_L64_r32_n4096``;
-4. serve — qwen2-0.5b at full width in bf16 (random weights from a seed),
+4. ops — the ``repro_torch.kernels.ops`` path: ``fused_lora_matmul`` at
+   LoRA sites of qwen2-0.5b and fedbench-100m, the JAX package's benchmark
+   shapes and a ragged edge, and ``flash_attention`` at qwen2-0.5b's
+   prefill, a gemma3-12b sliding-window layer and a non-causal ragged
+   length (each in f32 and bf16) and the benchmark shape ``B4_S2048_d64``
+   (bf16); each once through ``ops`` with the launch counts set to 0 just
+   before and read just after (one launch a case), then each output against
+   its plain version (f32 within 1e-4; bf16 within one rounding step more),
+   the f32 prefill against ``multihead_attention``, kernel, plain version
+   and library yardstick timed beside the bound, and every compiled
+   instance of both kernels (each register width, dtype pairing and head
+   width, rows with no valid key) checked at small shapes;
+5. serve — qwen2-0.5b at full width in bf16 (random weights from a seed),
    12 tenants of ranks 8/16/32/64 through an 8-slot adapter bank, 48
    requests with chunked prefill and ``lora_backend="grouped"``; every
    request must complete with its tokens, cold tenants must page in, and
    the kernel's launch count must equal 2 LoRA sites × 24 layers × the
    serve/prefill calls;
-5. agreement — the same model in f32 serves 16 requests through the
+6. agreement — the same model in f32 serves 16 requests through the
    ``grouped`` and the ``gather`` backends: greedy tokens must be equal;
-6. train — fedbench-100m at full width in f32 (random base weights from a
+7. train — fedbench-100m at full width in f32 (random base weights from a
    seed), 10 clients with 60% missing modalities, 3 FediLoRA rounds of 4
    clients × 10 local AdamW steps through ``aggregator="fedilora_kernel"``,
    then ``evaluate_global(n=32)``: losses and BLEU/RSUM finite, one edited
@@ -31,20 +43,21 @@ Phases (each raises on failure; the script then exits non-zero):
    recorded), and ``dim_agg`` launched 4 times a
    round (2 LoRA sites × A and B); one more round runs under
    ``torch.profiler``;
-7. train agreement — two trainers from one seed, ``fedilora_kernel`` vs
+8. train agreement — two trainers from one seed, ``fedilora_kernel`` vs
    ``fedilora`` for 3 rounds, then ``fedilora_trimmed_kernel`` vs
    ``fedilora_trimmed`` (trim 0.25) for 2 rounds, each round from one
    shared starting state: the same cohorts, and global adapters equal
    within atol 1e-5 + rtol 1e-4.
 
-Each path that runs a kernel (serve: BGMV; train: ``dim_agg``; the trimmed
-run: ``dim_agg_trimmed``) is driven with the launch counts set to 0 just
-before it and read just after; a kernel that its path never launched
-fails the run.  It prints a JSON line describing every kernel, the
-``nvidia-smi`` line, and last ``{"ok": true, "device": {...}}``.  Without a CUDA device, or
-without the rest of the repository beside it, it fails and prints no
-result.  A full record (every kernel case, the compiler's register and
-shared-memory report, the serve counters) goes to
+Each path that runs a kernel (ops: ``lora_matmul`` and ``flash_attention``;
+serve: BGMV; train: ``dim_agg``; the trimmed run: ``dim_agg_trimmed``) is
+driven with the launch counts set to 0 just before it and read just after;
+a kernel that its path never launched fails the run.  It prints a JSON
+line describing every kernel, the ``nvidia-smi`` line, and last
+``{"ok": true, "device": {...}}``.  Without a CUDA device, or without the
+rest of the repository beside it, it fails and prints no result.  A full
+record (every kernel case, the compiler's register and shared-memory
+report, the serve counters, each phase's wall) goes to
 ``build/chip_smoke.json``.
 """
 
@@ -69,7 +82,8 @@ PEAKS = [("H200", 4.8e12, 989e12, 67e12),
 KERNEL_SHAPES = [(16, 896, 896), (16, 896, 128), (512, 896, 896),
                  (512, 896, 128)]
 N_TENANTS, RANKS, BANK_SLOTS = 12, (8, 16, 32, 64), 8
-KERNEL_SOURCES = ("grouped_lora_matmul", "dim_agg")
+KERNEL_SOURCES = ("grouped_lora_matmul", "dim_agg", "lora_matmul",
+                  "flash_attention")
 
 # the round's stacked leaves on fedbench-100m (K = 4 sampled clients,
 # 12 layers, r_g = 32): (name, [K, L, P, Q], rank axis), then the JAX
@@ -78,6 +92,46 @@ DIM_AGG_SHAPES = [("wq.A", (4, 12, 32, 768), 2), ("wq.B", (4, 12, 768, 32), 3),
                   ("wv.B", (4, 12, 256, 32), 3),
                   ("K10_L64_r32_n4096", (10, 64, 32, 4096), 2)]
 TRAIN_ROUNDS, TRAIN_RANKS = 3, (4, 8, 8, 12, 12, 16, 16, 24, 32, 32)
+
+# the ops path (``repro_torch.kernels.ops``): fused LoRA projections
+# (name, M, K, N, r) at LoRA sites of supported models, the JAX package's
+# kernel-benchmark shapes and a ragged edge, each in f32 and bf16
+LORA_CASES = [("qwen2-0.5b.wq", 2048, 896, 896, 64),
+              ("qwen2-0.5b.wv", 2048, 896, 128, 64),
+              # batch 8 x (32 text + 8 vision-prefix tokens)
+              ("fedbench-100m.wq", 320, 768, 768, 32),
+              ("2048x2048x2048_r32", 2048, 2048, 2048, 32),
+              ("4096x4096x1024_r16", 4096, 4096, 1024, 16),
+              ("ragged", 300, 512, 640, 16)]
+# attention: (name, (B, Sq, Sk, H, KV, d, dv), causal, window, dtypes)
+FLASH_CASES = [("qwen2-0.5b.prefill", (2, 2048, 2048, 14, 2, 64, 64), True, 0,
+                ("bfloat16", "float32")),
+               ("gemma3-12b.local", (1, 4096, 4096, 16, 8, 256, 256), True,
+                1024, ("bfloat16", "float32")),
+               ("B4_S2048_d64", (4, 2048, 2048, 1, 1, 64, 64), True, 0,
+                ("bfloat16",)),
+               ("noncausal_ragged", (1, 1000, 1000, 14, 2, 64, 64), False, 0,
+                ("bfloat16", "float32"))]
+# every compiled instance of the two kernels at a small ragged shape (checked,
+# not timed): the LoRA kernel at one rank of each register width (r <= 16,
+# 32, 64, 128) and each pairing of x/W and A/B types; flash in f32 and bf16
+# at value widths of each register width (dv <= 32, 64, 128; gemma3 above
+# has 256), d = 72 (an odd padded stride), MLA's d 192 with dv 128, Sq != Sk,
+# a window without the causal mask, and rows that see no key at all (query
+# positions >= Sk + window - 1)
+WIDTH_LORA = [(130, 200, 150, r) for r in (8, 24, 40, 128)]
+WIDTH_FLASH = [("d32", (2, 300, 300, 4, 2, 32, 32), True, 0),
+               ("d72.noncausal_ragged", (1, 300, 260, 6, 3, 72, 72), False, 0),
+               ("d128.window", (1, 256, 256, 4, 1, 128, 128), True, 64),
+               ("d192_dv128.noncausal_window", (1, 200, 333, 4, 4, 192, 128),
+                False, 50),
+               ("keyless_rows", (1, 400, 150, 4, 2, 64, 64), True, 100)]
+# the limits against the plain version: f32 outputs within 1e-4 (sums over
+# K <= 4096 or Sk <= 4096 in another order, inputs scaled as the reference's
+# kernel tests scale them); a bf16 output is the same f32 value rounded
+# once, so it may sit one bf16 step (2^-7 of its magnitude) from the plain
+# version's, beside the f32 difference
+F32_ATOL, BF16_RTOL = 1e-4, 2.0 ** -7
 
 
 def peaks_for(name: str):
@@ -106,6 +160,14 @@ def cuda_time_ms(fn, arg_sets, iters: int = 60, warmup: int = 5) -> float:
     t1.record()
     torch.cuda.synchronize()
     return t0.elapsed_time(t1) / iters
+
+
+def _bound(nbytes: int, ops: int, bw: float, peak: float) -> dict:
+    """The least time for the work: its bytes over the memory rate, or its
+    operations over the peak rate of their type, whichever is larger."""
+    t_bytes, t_ops = nbytes / bw * 1e3, ops / peak * 1e3
+    return {"bytes": nbytes, "ops": ops, "bound_ms": max(t_bytes, t_ops),
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
 
 
 def phase_kernels(dev_name: str) -> dict:
@@ -161,18 +223,15 @@ def phase_kernels(dev_name: str) -> dict:
             n_adapters = len(set(idx.tolist()))
             nbytes = (K * N * sx + M * K * sx + M * N * sx
                       + n_adapters * r * (K + N) * sa + M * 4)
-            flops = 2 * M * K * N + 2 * M * r * (K + N)
+            ops = 2 * M * K * N + 2 * M * r * (K + N)
             peak = peak_bf16 if xdt == torch.bfloat16 else peak_f32
-            t_bytes, t_ops = nbytes / bw * 1e3, flops / peak * 1e3
             cases.append({
                 "M": M, "K": K, "N": N, "G": G, "r": r,
                 "x_dtype": str(xdt).split(".")[-1],
                 "bank_dtype": str(adt).split(".")[-1],
                 "max_abs_err": err.max().item(), "tol": tol,
                 "ms": kernel_ms, "plain_ms": plain_ms,
-                "library_ms": library_ms, "bytes": nbytes, "flops": flops,
-                "bound_ms": max(t_bytes, t_ops),
-                "bound_by": "bytes" if t_bytes >= t_ops else "operations"})
+                "library_ms": library_ms, **_bound(nbytes, ops, bw, peak)})
             print(f"kernel grouped_lora_matmul M={M} K={K} N={N} "
                   f"{cases[-1]['x_dtype']}/{cases[-1]['bank_dtype']}: "
                   f"err {cases[-1]['max_abs_err']:.3e} kernel {kernel_ms:.4f} "
@@ -249,15 +308,12 @@ def phase_dim_agg(dev_name: str) -> dict:
             lib_ms = (cuda_time_ms(lib, [(x,) for x in inputs])
                       if lib is not None else None)
             nbytes = (K + 1) * n_out * 4 + K * r * 4 + K * 4
-            t_bytes = nbytes / bw * 1e3
-            t_ops = ops_per * n_out / peak_f32 * 1e3
             cases.append({
                 "kernel": name, "variant": variant, "shape": label,
                 "dims": list(shape), "rank_axis": ax,
                 "max_abs_err": err.max().item(), "ms": ms,
-                "plain_ms": plain_ms, "library_ms": lib_ms, "bytes": nbytes,
-                "ops": ops_per * n_out, "bound_ms": max(t_bytes, t_ops),
-                "bound_by": "bytes" if t_bytes >= t_ops else "operations"})
+                "plain_ms": plain_ms, "library_ms": lib_ms,
+                **_bound(nbytes, ops_per * n_out, bw, peak_f32)})
             c = cases[-1]
             lib_s = "n/a" if lib_ms is None else f"{lib_ms:.4f} ms"
             print(f"kernel {name}{'+' + variant if variant else ''} {label}: "
@@ -265,6 +321,222 @@ def phase_dim_agg(dev_name: str) -> dict:
                   f"{plain_ms:.4f} ms einsum {lib_s} bound "
                   f"{c['bound_ms']:.4f} ms ({c['bound_by']})", flush=True)
     return {"cases": cases}
+
+
+def _valid_pairs(Sq: int, Sk: int, causal: bool, window: int) -> int:
+    """(query, key) pairs the mask lets through, positions from 0."""
+    import numpy as np
+    qp = np.arange(Sq, dtype=np.int64)
+    hi = np.minimum(qp + 1, Sk) if causal else np.full(Sq, Sk)
+    lo = np.maximum(qp - window + 1, 0) if window > 0 else np.zeros(Sq, int)
+    return int(np.clip(hi - lo, 0, None).sum())
+
+
+def _hold(what: str, y, ref) -> float:
+    """Max abs error of ``y`` against the plain version's ``ref``; raises
+    beyond the limit of y's dtype (``F32_ATOL``, and for bf16 one rounding
+    step ``BF16_RTOL * |ref|`` more)."""
+    import torch
+    if y.shape != ref.shape:
+        raise AssertionError(f"{what}: shape {tuple(y.shape)}, plain "
+                             f"{tuple(ref.shape)}")
+    err = (y.float() - ref.float()).abs()
+    rtol = BF16_RTOL if y.dtype == torch.bfloat16 else 0.0
+    if not bool((err <= F32_ATOL + rtol * ref.float().abs()).all()):
+        raise AssertionError(f"{what}: max err {err.max().item():.3e} beyond "
+                             f"atol {F32_ATOL} + rtol {rtol}")
+    return err.max().item()
+
+
+def phase_ops(dev_name: str) -> dict:
+    """The ops path: ``ops.fused_lora_matmul`` and ``ops.flash_attention``
+    driven once at every case with the launch counts set to 0 just before
+    and read just after; then each output against its plain version on the
+    same inputs (``_hold``), ``ops.flash_attention`` against the model's
+    ``multihead_attention`` at the qwen2-0.5b prefill shape in f32, kernel,
+    plain version and library yardstick timed, and every compiled instance
+    of both kernels checked at the ``WIDTH_*`` shapes.  Bounds: each input
+    read once and the output written once over the memory rate; the
+    products' operations (2 per multiply-add; for attention the valid pairs
+    only) over the peak of the inputs' type.  The attention yardstick is
+    ``scaled_dot_product_attention`` on the same function: ``is_causal``
+    for the causal mask, a boolean mask where there is a window."""
+    import torch
+    import torch.nn.functional as Fn
+
+    from repro_torch.kernels import flash as FA
+    from repro_torch.kernels import lora_matmul as LM
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.ref import lora_matmul_ref
+    from repro_torch.models.layers import multihead_attention
+
+    bw, peak_bf16, peak_f32 = peaks_for(dev_name)
+    gen = torch.Generator(device="cuda").manual_seed(2)
+    scale = 0.7
+
+    def randn(*shape, mul=1.0, dtype=torch.float32):
+        return (torch.randn(*shape, generator=gen, device="cuda")
+                * mul).to(dtype)
+
+    # x, W, A, B scaled as tests/test_kernels.py scales them
+    def lora_operands(M, K, N, r, xdt, adt):
+        return (randn(M, K, dtype=xdt), randn(K, N, mul=0.05, dtype=xdt),
+                randn(r, K, mul=0.1, dtype=adt),
+                randn(N, r, mul=0.1, dtype=adt))
+
+    def qkv(B, Sq, Sk, H, KV, d, dv, dt):
+        return (randn(B, Sq, H, d, dtype=dt), randn(B, Sk, KV, d, dtype=dt),
+                randn(B, Sk, KV, dv, dtype=dt))
+
+    lora, flash = [], []
+    for name, M, K, N, r in LORA_CASES:
+        for dt in (torch.float32, torch.bfloat16):
+            size = torch.finfo(dt).bits // 8
+            n_sets = max(2, int(120e6 // ((K * N + r * (K + N)) * size)))
+            sets = [lora_operands(M, K, N, r, dt, dt)[1:]
+                    for _ in range(n_sets)]
+            lora.append({"name": name, "dims": (M, K, N, r), "dtype": dt,
+                         "x": randn(M, K, dtype=dt), "sets": sets})
+    for name, dims, causal, window, dts in FLASH_CASES:
+        B, Sq, Sk, H, KV, d, dv = dims
+        for dtn in dts:
+            dt = getattr(torch, dtn)
+            size = torch.finfo(dt).bits // 8
+            per_set = B * (Sq * H * d + Sk * KV * (d + dv)) * size
+            n_sets = max(2, int(120e6 // per_set))
+            flash.append({"name": name, "dims": dims, "causal": causal,
+                          "window": window, "dtype": dt,
+                          "sets": [qkv(*dims, dt) for _ in range(n_sets)]})
+    torch.cuda.synchronize()
+
+    # the path: each entry point once per case, counted
+    for kern in (LM, FA):
+        kern.reset_launches()
+    for c in lora:
+        c["y"] = ops.fused_lora_matmul(c["x"], *c["sets"][0], scale=scale)
+    for c in flash:
+        c["y"] = ops.flash_attention(*c["sets"][0], causal=c["causal"],
+                                     window=c["window"])
+    torch.cuda.synchronize()
+    launches = {"lora_matmul": LM.launches, "flash_attention": FA.launches}
+    if launches != {"lora_matmul": len(lora), "flash_attention": len(flash)}:
+        raise AssertionError(f"ops path launches {launches}, expected "
+                             f"{len(lora)} lora_matmul and {len(flash)} "
+                             "flash_attention")
+
+    cases = []
+    for c in lora:
+        M, K, N, r = c["dims"]
+        dt, x = c["dtype"], c["x"]
+        w, a, b = c["sets"][0]
+        err = _hold(f"fused_lora_matmul {c['name']} {dt}", c["y"],
+                    lora_matmul_ref(x, w, a, b, scale=scale))
+        ms = cuda_time_ms(lambda w, a, b: LM.lora_matmul_cuda(
+            x, w, a, b, scale=scale), c["sets"])
+        plain_ms = cuda_time_ms(lambda w, a, b: lora_matmul_ref(
+            x, w, a, b, scale=scale), c["sets"])
+        lib_ms = cuda_time_ms(lambda w, a, b: torch.matmul(x, w), c["sets"])
+        size = torch.finfo(dt).bits // 8
+        cases.append({
+            "kernel": "lora_matmul", "shape": c["name"], "M": M, "K": K,
+            "N": N, "r": r, "dtype": str(dt).split(".")[-1],
+            "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+            "library_ms": lib_ms,
+            "library_call": "torch.matmul(x, W): the base product only",
+            **_bound((M * K + K * N + M * N + r * (K + N)) * size,
+                     2 * M * N * K + 2 * M * r * (K + N), bw,
+                     peak_bf16 if dt == torch.bfloat16 else peak_f32)})
+    for c in flash:
+        B, Sq, Sk, H, KV, d, dv = c["dims"]
+        dt, causal, window = c["dtype"], c["causal"], c["window"]
+        q, k, v = c["sets"][0]
+        ref = FA.plain_flash_attention(q, k, v, causal=causal, window=window)
+        err = _hold(f"flash_attention {c['name']} {dt}", c["y"], ref)
+        model_err = None
+        if c["name"] == "qwen2-0.5b.prefill" and dt == torch.float32:
+            model = multihead_attention(q, k, v, causal=True, chunked=False)
+            model_err = (c["y"] - model).abs().max().item()
+            if model_err > F32_ATOL:
+                raise AssertionError(f"ops.flash_attention vs "
+                                     f"multihead_attention: max err "
+                                     f"{model_err:.3e} beyond {F32_ATOL}")
+            del model
+        # the yardstick: SDPA on the same function in the [B, H, S, d]
+        # layout it takes (views made outside the timing); a window is a
+        # boolean mask (True: attend)
+        mask = None
+        if window:
+            qp = torch.arange(Sq, device="cuda")[:, None]
+            kp = torch.arange(Sk, device="cuda")[None, :]
+            mask = qp - kp < window
+            if causal:
+                mask &= qp >= kp
+        lib_causal = causal and not window
+        lib_call = ("scaled_dot_product_attention(q, k, v, "
+                    + ("attn_mask=window mask, " if window else
+                       "is_causal=True, " if causal else "")
+                    + f"enable_gqa={H != KV}) in the [B, H, S, d] layout")
+
+        def sdpa(q, k, v):
+            return Fn.scaled_dot_product_attention(
+                q, k, v, attn_mask=mask, is_causal=lib_causal,
+                enable_gqa=H != KV)
+
+        tsets = [tuple(t.transpose(1, 2) for t in s) for s in c["sets"]]
+        lib_diff = (sdpa(*tsets[0]).transpose(1, 2).float()
+                    - ref.float()).abs().max().item()
+        del ref
+        ms = cuda_time_ms(lambda q, k, v: FA.flash_attention_cuda(
+            q, k, v, causal=causal, window=window), c["sets"], iters=20)
+        plain_ms = cuda_time_ms(lambda q, k, v: FA.plain_flash_attention(
+            q, k, v, causal=causal, window=window), c["sets"], iters=20)
+        lib_ms = cuda_time_ms(sdpa, tsets, iters=20)
+        size = torch.finfo(dt).bits // 8
+        pairs = B * H * _valid_pairs(Sq, Sk, causal, window)
+        cases.append({
+            "kernel": "flash_attention", "shape": c["name"],
+            "dims": {"B": B, "Sq": Sq, "Sk": Sk, "H": H, "KV": KV, "d": d,
+                     "dv": dv}, "causal": causal, "window": window,
+            "dtype": str(dt).split(".")[-1],
+            "max_abs_err": err, "model_max_abs_err": model_err,
+            "ms": ms, "plain_ms": plain_ms, "library_ms": lib_ms,
+            "library_call": lib_call, "library_max_abs_diff": lib_diff,
+            **_bound((B * Sq * H * (d + dv) + B * Sk * KV * (d + dv)) * size,
+                     2 * pairs * (d + dv), bw,
+                     peak_bf16 if dt == torch.bfloat16 else peak_f32)})
+    for c in cases:
+        print(f"ops {c['kernel']} {c['shape']} {c['dtype']}: err "
+              f"{c['max_abs_err']:.3e} kernel {c['ms']:.4f} ms plain "
+              f"{c['plain_ms']:.4f} ms library {c['library_ms']:.4f} ms "
+              f"bound {c['bound_ms']:.4f} ms ({c['bound_by']})", flush=True)
+    print(f"ops path launches: {launches}", flush=True)
+
+    # every compiled instance, through the kernel wrappers (after the
+    # counted run)
+    widths = []
+    for M, K, N, r in WIDTH_LORA:
+        for xdt, adt in [(torch.float32, torch.float32),
+                         (torch.bfloat16, torch.bfloat16),
+                         (torch.bfloat16, torch.float32),
+                         (torch.float32, torch.bfloat16)]:
+            x, w, a, b = lora_operands(M, K, N, r, xdt, adt)
+            what = f"lora_matmul {M}x{K}x{N} r{r} {xdt}/{adt}"
+            widths.append({"case": what, "max_abs_err": _hold(
+                what, LM.lora_matmul_cuda(x, w, a, b, scale=scale),
+                lora_matmul_ref(x, w, a, b, scale=scale))})
+    for name, dims, causal, window in WIDTH_FLASH:
+        for dt in (torch.float32, torch.bfloat16):
+            q, k, v = qkv(*dims, dt)
+            what = f"flash_attention {name} {dims} {dt}"
+            widths.append({"case": what, "max_abs_err": _hold(
+                what, FA.flash_attention_cuda(q, k, v, causal=causal,
+                                              window=window),
+                FA.plain_flash_attention(q, k, v, causal=causal,
+                                         window=window))})
+    print(f"ops widths: {len(widths)} kernel instances and shapes within "
+          f"their limits, max err "
+          f"{max(c['max_abs_err'] for c in widths):.3e}", flush=True)
+    return {"launches": launches, "cases": cases, "widths": widths}
 
 
 def make_adapters(cfg, rng, n: int):
@@ -627,12 +899,24 @@ def main() -> int:
     print(f"build: {build_s:.2f} s "
           f"({', '.join(sorted(kbuild.BUILD_INFO))})", flush=True)
 
-    kern = phase_kernels(dev_name)
-    dagg = phase_dim_agg(dev_name)
-    served = phase_serve()
-    agree = phase_agreement()
-    trained = phase_train()
-    train_agree = phase_train_agreement()
+    phase_s = {}
+
+    def timed(name, fn, *args):
+        t0 = time.perf_counter()
+        out = fn(*args)
+        phase_s[name] = time.perf_counter() - t0
+        return out
+
+    kern = timed("kernels", phase_kernels, dev_name)
+    dagg = timed("dim_agg", phase_dim_agg, dev_name)
+    opsr = timed("ops", phase_ops, dev_name)
+    served = timed("serve", phase_serve)
+    agree = timed("agreement", phase_agreement)
+    trained = timed("train", phase_train)
+    train_agree = timed("train_agreement", phase_train_agreement)
+    print("phase wall s: " + ", ".join(f"{k} {v:.1f}"
+                                       for k, v in phase_s.items()),
+          flush=True)
 
     cases = kern["cases"]
     # headline: the decode step's shape and dtypes on the serve path
@@ -678,14 +962,39 @@ def main() -> int:
             "bound_ms": h["bound_ms"], "bound_by": h["bound_by"],
             "shape": {"dims": h["dims"], "rank_axis": h["rank_axis"],
                       "dtype": "float32"}})
+    # headlines for the ops kernels: qwen2-0.5b's wq LoRA site and its
+    # prefill attention, in bf16
+    for name, line, head_shape in [
+            ("lora_matmul", 54, "qwen2-0.5b.wq"),
+            ("flash_attention", 76, "qwen2-0.5b.prefill")]:
+        mine = [c for c in opsr["cases"] if c["kernel"] == name]
+        h = next(c for c in mine if c["shape"] == head_shape
+                 and c["dtype"] == "bfloat16")
+        records.append({
+            "name": name, "route": "cuda",
+            "source": f"src/repro_torch/kernels/csrc/{name}.cu",
+            "replaces": f"src/repro/kernels/{name}.py:{line}",
+            "launches": opsr["launches"][name],
+            "max_abs_err": max(c["max_abs_err"] for c in mine),
+            "max_err_f32": max(c["max_abs_err"] for c in mine
+                               if c["dtype"] == "float32"),
+            "max_err_bf16": max(c["max_abs_err"] for c in mine
+                                if c["dtype"] == "bfloat16"),
+            "ms": h["ms"], "plain_ms": h["plain_ms"],
+            "library_ms": h["library_ms"], "library_call": h["library_call"],
+            "bound_ms": h["bound_ms"], "bound_by": h["bound_by"],
+            "shape": {"case": head_shape, "dtype": "bfloat16"}})
     out_dir = os.path.join(ROOT, "build")
     os.makedirs(out_dir, exist_ok=True)
     with open(os.path.join(out_dir, "chip_smoke.json"), "w") as f:
-        json.dump({"device": smi, "build_s": build_s,
+        json.dump({"device": smi, "torch": torch.__version__,
+                   "cuda": torch.version.cuda, "build_s": build_s,
+                   "phase_s": phase_s,
                    "build_logs": {k: v["log"]
                                   for k, v in kbuild.BUILD_INFO.items()},
                    "kernels": records,
                    "kernel_cases": cases, "dim_agg_cases": dagg["cases"],
+                   "ops": opsr,
                    "serve": served, "agreement": agree, "train": trained,
                    "train_agreement": train_agree}, f, indent=1)
     print(json.dumps({"kernels": records}))

@@ -1,0 +1,141 @@
+"""Flash attention (forward): softmax attention with an optional causal
+mask and sliding window, q [B, Sq, H, d] and k, v [B, Sk, KV, d | dv]
+(grouped-query when KV < H) → [B, Sq, H, dv].
+
+Port of ``repro.kernels.ops.flash_attention`` + the Pallas kernel
+``flash_attention_pallas`` (``kernels/flash_attention.py``).  On a CUDA
+tensor the wrapper launches the hand-written Hopper kernel
+(``csrc/flash_attention.cu``, built by ``build.py`` at first use) or raises;
+on a CPU tensor it computes the plain version ``ref.flash_attention_ref``.
+``launches`` counts kernel launches.
+
+Two differences from the reference's wrapper: the kernel reads query head
+h's key/value head ``h // (H // KV)`` in place, where the wrapper repeated
+K and V over the heads; and keys at positions ≥ Sk are always masked, where
+the wrapper padded Sk to its tile and left the padded keys unmasked for
+non-causal queries (the plain version never pads).  A query row with no
+valid key averages every value on both routes, as the reference's oracle
+does.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from repro_torch.kernels.ref import flash_attention_ref
+
+#: kernel launches since the last reset (CPU calls never count)
+launches = 0
+#: widest query/key and value head the kernel takes (the repository's
+#: configurations go up to 256; the tiles then take about 140 KB of shared
+#: memory)
+MAX_HEAD_DIM = 256
+_DTYPES = (torch.float32, torch.bfloat16)
+_FN = None
+
+
+def reset_launches() -> None:
+    global launches
+    launches = 0
+
+
+def _kernel_fn():
+    global _FN
+    if _FN is None:
+        from repro_torch.kernels.build import build
+        fn = build("flash_attention").flash_attention_launch
+        fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 10
+                       + [ctypes.c_void_p])
+        fn.restype = ctypes.c_int
+        _FN = fn
+    return _FN
+
+
+def _check_shapes(q: torch.Tensor, k: torch.Tensor,
+                  v: torch.Tensor) -> tuple:
+    if q.dim() != 4 or k.dim() != 4 or v.dim() != 4:
+        raise ValueError(f"q, k, v must be [B, S, heads, width], got "
+                         f"{tuple(q.shape)}, {tuple(k.shape)}, "
+                         f"{tuple(v.shape)}")
+    B, Sq, H, d = q.shape
+    Sk, KV = k.shape[1], k.shape[2]
+    if (k.shape[0] != B or k.shape[3] != d or tuple(v.shape[:3]) != (B, Sk, KV)
+            or KV < 1 or H % KV):
+        raise ValueError(f"shapes q {tuple(q.shape)} k {tuple(k.shape)} "
+                         f"v {tuple(v.shape)} do not agree (H must be a "
+                         "multiple of KV)")
+    return B, Sq, Sk, H, KV, d, v.shape[3]
+
+
+def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                         *, causal: bool = True,
+                         window: int = 0) -> torch.Tensor:
+    """Launch the kernel: q [B, Sq, H, d], k [B, Sk, KV, d], v [B, Sk, KV,
+    dv], all of one dtype, contiguous and on one CUDA device."""
+    global launches
+    if q.dtype not in _DTYPES or k.dtype != q.dtype or v.dtype != q.dtype:
+        raise TypeError(f"q/k/v dtypes {q.dtype}/{k.dtype}/{v.dtype}: need "
+                        f"one of {_DTYPES}, equal")
+    B, Sq, Sk, H, KV, d, dv = _check_shapes(q, k, v)
+    if not (1 <= d <= MAX_HEAD_DIM and 1 <= dv <= MAX_HEAD_DIM):
+        raise ValueError(f"head widths d={d}, dv={dv} outside [1, "
+                         f"{MAX_HEAD_DIM}]")
+    if H > 65535 or B > 65535 or max(Sq, Sk) >= 2 ** 31:
+        raise ValueError(f"q {tuple(q.shape)} too large for the kernel's "
+                         "grid")
+    if window < 0:
+        raise ValueError(f"window {window} < 0")
+    for name, t in (("q", q), ("k", k), ("v", v)):
+        if not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+        if t.device.type != "cuda" or t.device != q.device:
+            raise ValueError(f"{name} on {t.device}: the kernel needs every "
+                             "operand on one CUDA device")
+    o = torch.empty((B, Sq, H, dv), dtype=q.dtype, device=q.device)
+    if B == 0 or Sq == 0 or H == 0:
+        return o
+    err = _kernel_fn()(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), B, Sq, Sk,
+        H, KV, d, dv, int(bool(causal)), int(window),
+        int(q.dtype == torch.bfloat16),
+        torch.cuda.current_stream(q.device).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"flash_attention kernel launch failed: "
+                           f"cudaError {err}")
+    launches += 1
+    return o
+
+
+def plain_flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                          *, causal: bool = True,
+                          window: int = 0) -> torch.Tensor:
+    """The plain version (``ref.flash_attention_ref``) in the kernel's
+    layout: K and V repeated over the query heads, heads folded into the
+    batch."""
+    B, Sq, Sk, H, KV, d, dv = _check_shapes(q, k, v)
+    rep = H // KV
+    kf = k.repeat_interleave(rep, dim=2).transpose(1, 2).reshape(B * H, Sk, d)
+    vf = v.repeat_interleave(rep, dim=2).transpose(1, 2).reshape(B * H, Sk,
+                                                                  dv)
+    qf = q.transpose(1, 2).reshape(B * H, Sq, d)
+    out = flash_attention_ref(qf, kf, vf, causal=causal, window=window)
+    return out.reshape(B, H, Sq, dv).transpose(1, 2)
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                    causal: bool = True, window: int = 0) -> torch.Tensor:
+    """Attention over q [B, Sq, H, d] and k, v [B, Sk, KV, d | dv] →
+    [B, Sq, H, dv] in q's dtype: scale 1/sqrt(d), optional causal mask
+    (query and key positions both from 0) and sliding ``window``
+    (``q_pos - k_pos < window``)."""
+    if q.device.type == "cpu":
+        return plain_flash_attention(q, k, v, causal=causal, window=window)
+    if q.device.type == "cuda":
+        return flash_attention_cuda(q, k, v, causal=causal, window=window)
+    raise ValueError(f"no flash_attention for device {q.device}")
+
+
+__all__ = ["MAX_HEAD_DIM", "flash_attention", "flash_attention_cuda",
+           "launches", "plain_flash_attention", "reset_launches"]

@@ -3,7 +3,24 @@ each CUDA kernel is held against on the card."""
 
 from __future__ import annotations
 
+import math
+
 import torch
+
+#: the score a masked (query, key) pair gets, as in the JAX package's oracle
+NEG_INF = -1e30
+
+
+def lora_matmul_ref(x: torch.Tensor, w: torch.Tensor, a: torch.Tensor,
+                    b: torch.Tensor, *, scale: float = 1.0) -> torch.Tensor:
+    """The fused LoRA projection ``y = x@W + scale·(x@Aᵀ)@Bᵀ``, accumulated
+    in f32 and cast to x's dtype once.  x: [M, K]; w: [K, N]; a: [r, K];
+    b: [N, r]."""
+    x32 = x.float()
+    base = x32 @ w.float()
+    xa = x32 @ a.float().T
+    delta = xa @ b.float().T
+    return (base + scale * delta).to(x.dtype)
 
 
 def grouped_lora_matmul_ref(x: torch.Tensor, w: torch.Tensor, a: torch.Tensor,
@@ -64,4 +81,28 @@ def dim_agg_trimmed_ref(stacked: torch.Tensor, p: torch.Tensor,
     return (num / torch.clamp(den, min=1e-12)).to(stacked.dtype)
 
 
-__all__ = ["dim_agg_ref", "dim_agg_trimmed_ref", "grouped_lora_matmul_ref"]
+def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                        causal: bool = True, window: int = 0) -> torch.Tensor:
+    """Plain softmax attention over heads folded into the batch: q
+    [BH, Sq, d]; k [BH, Sk, d]; v [BH, Sk, dv] → [BH, Sq, dv] in q's dtype.
+    Scores in f32 scaled by 1/sqrt(d); query and key positions both start at
+    0; a masked pair scores ``NEG_INF`` (so a row with no valid key averages
+    every value, as the reference's oracle does)."""
+    d = q.shape[-1]
+    s = torch.einsum("bqd,bkd->bqk", q.float(), k.float()) / math.sqrt(d)
+    Sq, Sk = q.shape[1], k.shape[1]
+    qp = torch.arange(Sq, device=q.device)[:, None]
+    kp = torch.arange(Sk, device=q.device)[None, :]
+    ok = torch.ones((Sq, Sk), dtype=torch.bool, device=q.device)
+    if causal:
+        ok &= qp >= kp
+    if window and window > 0:
+        ok &= (qp - kp) < window
+    s = torch.where(ok[None], s, NEG_INF)
+    p = torch.softmax(s, dim=-1)
+    return torch.einsum("bqk,bkd->bqd", p, v.float()).to(q.dtype)
+
+
+__all__ = ["NEG_INF", "dim_agg_ref", "dim_agg_trimmed_ref",
+           "flash_attention_ref", "grouped_lora_matmul_ref",
+           "lora_matmul_ref"]
