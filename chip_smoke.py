@@ -7,11 +7,14 @@ Phases (each raises on failure; the script then exits non-zero):
 
 1. device — the card's name and power limit (``nvidia-smi``);
 2. build — every CUDA kernel of the port, from the sources in this
-   checkout, one ``nvcc`` per source, all started together;
+   checkout, one ``nvcc`` per source, all started together; then
+   ``cuobjdump -sass`` counts the tensor-core instructions: HGMMA in every
+   flash wgmma kernel and HMMA in every bf16 BGMV instance must be > 0;
 3. kernels — each kernel against its plain PyTorch version on the card at
    its path's shapes, with the stated tolerances, and timed with CUDA
    events (kernel, plain version, library yardstick) beside the card's
-   bound for the same work: the BGMV kernel at the serving shapes, the
+   bound for the same work: the BGMV kernels at the serving shapes (and
+   every compiled BGMV instance at small ragged shapes), the
    ``dim_agg`` kernels at the round's leaves on fedbench-100m and at the
    JAX package's benchmark shape ``K10_L64_r32_n4096``;
 4. ops — the ``repro_torch.kernels.ops`` path: ``fused_lora_matmul`` at
@@ -20,18 +23,25 @@ Phases (each raises on failure; the script then exits non-zero):
    prefill, a gemma3-12b sliding-window layer and a non-causal ragged
    length (each in f32 and bf16) and the benchmark shape ``B4_S2048_d64``
    (bf16); each once through ``ops`` with the launch counts set to 0 just
-   before and read just after (one launch a case), then each output against
-   its plain version (f32 within 1e-4; bf16 within one rounding step more),
-   the f32 prefill against ``multihead_attention``, kernel, plain version
-   and library yardstick timed beside the bound, and every compiled
+   before and read just after (one launch a case; every bf16 flash case on
+   the ``wgmma`` route, every f32 one on ``simt``), then each output
+   against its plain version (f32 within 1e-4; bf16 within one rounding
+   step more, and on the tensor-core flash route 2^-8 · plain(q, k, |v|)
+   more for the probabilities rounded to bf16), the f32 prefill against
+   ``multihead_attention``, kernel, plain version and library yardstick
+   timed beside the bound (route, TFLOP/s, % of bound), and every compiled
    instance of both kernels (each register width, dtype pairing and head
-   width, rows with no valid key) checked at small shapes;
+   width, rows with no valid key, a bf16 shape TMA refuses) checked at
+   small shapes on its route;
 5. serve — qwen2-0.5b at full width in bf16 (random weights from a seed),
    12 tenants of ranks 8/16/32/64 through an 8-slot adapter bank, 48
    requests with chunked prefill and ``lora_backend="grouped"``; every
    request must complete with its tokens, cold tenants must page in, and
-   the kernel's launch count must equal 2 LoRA sites × 24 layers × the
-   serve/prefill calls;
+   the BGMV wrapper's call count must equal 2 LoRA sites × 24 layers × the
+   serve/prefill calls (each call launches two kernels); then a second,
+   shorter run (16 requests of 16 tokens) under ``torch.profiler``: the
+   device's busy share, the BGMV kernels' share of the device time, the
+   largest device rows;
 6. agreement — the same model in f32 serves 16 requests through the
    ``grouped`` and the ``gather`` backends: greedy tokens must be equal;
 7. train — fedbench-100m at full width in f32 (random base weights from a
@@ -57,8 +67,8 @@ line describing every kernel, the ``nvidia-smi`` line, and last
 ``{"ok": true, "device": {...}}``.  Without a CUDA device, or without the
 rest of the repository beside it, it fails and prints no result.  A full
 record (every kernel case, the compiler's register and shared-memory
-report, the serve counters, each phase's wall) goes to
-``build/chip_smoke.json``.
+report, the SASS counts, the serve counters and profile, each phase's
+wall) goes to ``build/chip_smoke.json``.
 """
 
 from __future__ import annotations
@@ -83,7 +93,13 @@ KERNEL_SHAPES = [(16, 896, 896), (16, 896, 128), (512, 896, 896),
                  (512, 896, 128)]
 N_TENANTS, RANKS, BANK_SLOTS = 12, (8, 16, 32, 64), 8
 KERNEL_SOURCES = ("grouped_lora_matmul", "dim_agg", "lora_matmul",
-                  "flash_attention")
+                  "flash_attention", "flash_attention_wgmma")
+# every compiled BGMV instance at small ragged shapes (checked, not timed):
+# (M, K, N, r) over each pairing of x/W and bank types; M <= 64 takes the
+# decode tiling, M > 64 the prefill tiling; K or N not a multiple of 8
+# stages by plain loads, and ranks go up to 128
+WIDTH_BGMV = [(13, 200, 150, 8), (7, 96, 40, 128), (40, 896, 896, 64),
+              (100, 200, 150, 24), (130, 152, 96, 40), (70, 896, 896, 128)]
 
 # the round's stacked leaves on fedbench-100m (K = 4 sampled clients,
 # 12 layers, r_g = 32): (name, [K, L, P, Q], rank axis), then the JAX
@@ -92,6 +108,7 @@ DIM_AGG_SHAPES = [("wq.A", (4, 12, 32, 768), 2), ("wq.B", (4, 12, 768, 32), 3),
                   ("wv.B", (4, 12, 256, 32), 3),
                   ("K10_L64_r32_n4096", (10, 64, 32, 4096), 2)]
 TRAIN_ROUNDS, TRAIN_RANKS = 3, (4, 8, 8, 12, 12, 16, 16, 24, 32, 32)
+SERVE_PROFILE_REQUESTS = 16
 
 # the ops path (``repro_torch.kernels.ops``): fused LoRA projections
 # (name, M, K, N, r) at LoRA sites of supported models, the JAX package's
@@ -114,24 +131,32 @@ FLASH_CASES = [("qwen2-0.5b.prefill", (2, 2048, 2048, 14, 2, 64, 64), True, 0,
                 ("bfloat16", "float32"))]
 # every compiled instance of the two kernels at a small ragged shape (checked,
 # not timed): the LoRA kernel at one rank of each register width (r <= 16,
-# 32, 64, 128) and each pairing of x/W and A/B types; flash in f32 and bf16
-# at value widths of each register width (dv <= 32, 64, 128; gemma3 above
-# has 256), d = 72 (an odd padded stride), MLA's d 192 with dv 128, Sq != Sk,
-# a window without the causal mask, and rows that see no key at all (query
-# positions >= Sk + window - 1)
+# 32, 64, 128) and each pairing of x/W and A/B types; flash in f32 (the simt
+# route) and bf16 (the wgmma route) at value widths of each instance of both
+# (dv <= 32, 64, 128, 192, 256), d = 72 (padded to 80 in shared memory), MLA's
+# d 192 with dv 128, Sq != Sk, a window without the causal mask, and rows
+# that see no key at all (query positions >= Sk + window - 1)
 WIDTH_LORA = [(130, 200, 150, r) for r in (8, 24, 40, 128)]
 WIDTH_FLASH = [("d32", (2, 300, 300, 4, 2, 32, 32), True, 0),
                ("d72.noncausal_ragged", (1, 300, 260, 6, 3, 72, 72), False, 0),
                ("d128.window", (1, 256, 256, 4, 1, 128, 128), True, 64),
                ("d192_dv128.noncausal_window", (1, 200, 333, 4, 4, 192, 128),
                 False, 50),
-               ("keyless_rows", (1, 400, 150, 4, 2, 64, 64), True, 100)]
+               ("keyless_rows", (1, 400, 150, 4, 2, 64, 64), True, 100),
+               ("d64_dv192.noncausal", (1, 130, 140, 4, 2, 64, 192), False,
+                0),
+               ("d256.window", (2, 300, 200, 2, 1, 256, 256), True, 100)]
+# bf16 whose strides TMA refuses (d * 2 = 72 bytes): the simt route
+FLASH_SIMT_BF16 = [("d36.tma_refused", (1, 200, 200, 1, 1, 36, 36), True, 0)]
 # the limits against the plain version: f32 outputs within 1e-4 (sums over
 # K <= 4096 or Sk <= 4096 in another order, inputs scaled as the reference's
 # kernel tests scale them); a bf16 output is the same f32 value rounded
 # once, so it may sit one bf16 step (2^-7 of its magnitude) from the plain
-# version's, beside the f32 difference
-F32_ATOL, BF16_RTOL = 1e-4, 2.0 ** -7
+# version's, beside the f32 difference.  On the tensor-core flash route the
+# probabilities are rounded to bf16 before P.V (a relative error of 2^-9 on
+# each p), so an output also moves by up to 2^-9 sum_j p_j |v_j| / l: it is
+# held to 2^-8 (twice that) times the plain version on |v|
+F32_ATOL, BF16_RTOL, P_BF16_RTOL = 1e-4, 2.0 ** -7, 2.0 ** -8
 
 
 def peaks_for(name: str):
@@ -171,7 +196,8 @@ def _bound(nbytes: int, ops: int, bw: float, peak: float) -> dict:
 
 
 def phase_kernels(dev_name: str) -> dict:
-    """grouped_lora_matmul vs its plain version at the serving shapes."""
+    """grouped_lora_matmul vs its plain version at the serving shapes, then
+    every compiled instance at the ``WIDTH_BGMV`` shapes."""
     import torch
 
     from repro_torch.kernels import grouped_lora_matmul as glm
@@ -180,12 +206,14 @@ def phase_kernels(dev_name: str) -> dict:
     bw, peak_bf16, peak_f32 = peaks_for(dev_name)
     gen = torch.Generator(device="cuda").manual_seed(0)
     G, r, scale = 8, 64, 0.25
+    pairings = [(torch.float32, torch.float32),
+                (torch.bfloat16, torch.bfloat16),
+                (torch.bfloat16, torch.float32),
+                (torch.float32, torch.bfloat16)]
     cases = []
     # x/W dtype, bank dtype: f32; bf16; and the serve path's bf16 model
     # over an f32 bank
-    for xdt, adt in [(torch.float32, torch.float32),
-                     (torch.bfloat16, torch.bfloat16),
-                     (torch.bfloat16, torch.float32)]:
+    for xdt, adt in pairings[:3]:
         for M, K, N in KERNEL_SHAPES:
             sx = torch.finfo(xdt).bits // 8
             sa = torch.finfo(adt).bits // 8
@@ -232,13 +260,44 @@ def phase_kernels(dev_name: str) -> dict:
                 "max_abs_err": err.max().item(), "tol": tol,
                 "ms": kernel_ms, "plain_ms": plain_ms,
                 "library_ms": library_ms, **_bound(nbytes, ops, bw, peak)})
+            cases[-1]["pct_of_bound"] = 100 * cases[-1]["bound_ms"] / kernel_ms
             print(f"kernel grouped_lora_matmul M={M} K={K} N={N} "
                   f"{cases[-1]['x_dtype']}/{cases[-1]['bank_dtype']}: "
                   f"err {cases[-1]['max_abs_err']:.3e} kernel {kernel_ms:.4f} "
                   f"ms plain {plain_ms:.4f} ms matmul {library_ms:.4f} ms "
                   f"bound {cases[-1]['bound_ms']:.4f} ms "
-                  f"({cases[-1]['bound_by']})", flush=True)
-    return {"cases": cases}
+                  f"({cases[-1]['bound_by']}, "
+                  f"{cases[-1]['pct_of_bound']:.1f} %)", flush=True)
+    # every compiled instance (pairing x tiling) at small ragged shapes, with
+    # indices outside [0, G) that the kernels clamp
+    widths = []
+    for M, K, N, r in WIDTH_BGMV:
+        for xdt, adt in pairings:
+            x = torch.randn(M, K, generator=gen, device="cuda").to(xdt)
+            w = (torch.randn(K, N, generator=gen, device="cuda")
+                 * K ** -0.5).to(xdt)
+            a = (torch.randn(G, r, K, generator=gen, device="cuda")
+                 * K ** -0.5).to(adt)
+            b = (torch.randn(G, N, r, generator=gen, device="cuda")
+                 * r ** -0.5).to(adt)
+            idx = (torch.arange(M, device="cuda", dtype=torch.int32) * 3
+                   % (G + 2) - 1)
+            y = glm.grouped_lora_matmul_cuda(x, w, a, b, idx, scale=scale)
+            ref = grouped_lora_matmul_ref(x.float(), w.float(), a.float(),
+                                          b.float(), idx.clamp(0, G - 1),
+                                          scale=scale)
+            err = (y.float() - ref).abs()
+            tol = 1e-4 if xdt == adt == torch.float32 else 2e-2
+            what = f"grouped_lora_matmul {M}x{K}x{N} r{r} {xdt}/{adt}"
+            if not bool((err <= tol + tol * ref.abs()).all()):
+                raise AssertionError(f"{what}: max err "
+                                     f"{err.max().item():.3e} beyond "
+                                     f"atol=rtol={tol}")
+            widths.append({"case": what, "max_abs_err": err.max().item()})
+    print(f"kernel widths: {len(widths)} BGMV instances and shapes within "
+          f"their limits, max err "
+          f"{max(c['max_abs_err'] for c in widths):.3e}", flush=True)
+    return {"cases": cases, "widths": widths}
 
 
 def phase_dim_agg(dev_name: str) -> dict:
@@ -332,20 +391,56 @@ def _valid_pairs(Sq: int, Sk: int, causal: bool, window: int) -> int:
     return int(np.clip(hi - lo, 0, None).sum())
 
 
-def _hold(what: str, y, ref) -> float:
+def _hold(what: str, y, ref, p_abs=None) -> float:
     """Max abs error of ``y`` against the plain version's ``ref``; raises
     beyond the limit of y's dtype (``F32_ATOL``, and for bf16 one rounding
-    step ``BF16_RTOL * |ref|`` more)."""
+    step ``BF16_RTOL * |ref|`` more).  ``p_abs``, given for the tensor-core
+    flash route only, is the plain version on |v|: the limit then grows by
+    ``P_BF16_RTOL * p_abs`` for the probabilities rounded to bf16."""
     import torch
     if y.shape != ref.shape:
         raise AssertionError(f"{what}: shape {tuple(y.shape)}, plain "
                              f"{tuple(ref.shape)}")
     err = (y.float() - ref.float()).abs()
     rtol = BF16_RTOL if y.dtype == torch.bfloat16 else 0.0
-    if not bool((err <= F32_ATOL + rtol * ref.float().abs()).all()):
-        raise AssertionError(f"{what}: max err {err.max().item():.3e} beyond "
-                             f"atol {F32_ATOL} + rtol {rtol}")
+    lim = F32_ATOL + rtol * ref.float().abs()
+    if p_abs is not None:
+        lim = lim + P_BF16_RTOL * p_abs.float()
+    if not bool((err <= lim).all()):
+        raise AssertionError(
+            f"{what}: max err {err.max().item():.3e} beyond atol {F32_ATOL} "
+            f"+ rtol {rtol}" + (f" + {P_BF16_RTOL} * plain(q, k, |v|)"
+                                if p_abs is not None else ""))
     return err.max().item()
+
+
+def _hold_flash(what: str, y, q, k, v, causal: bool, window: int,
+                route: str, ref=None) -> float:
+    """``_hold`` for one flash output: the route's limit against the plain
+    version on the same inputs."""
+    from repro_torch.kernels import flash as FA
+    if ref is None:
+        ref = FA.plain_flash_attention(q, k, v, causal=causal, window=window)
+    p_abs = None
+    if route == "wgmma":
+        p_abs = FA.plain_flash_attention(q.float(), k.float(), v.float().abs(),
+                                         causal=causal, window=window)
+    return _hold(what, y, ref, p_abs)
+
+
+def _flash_checked(what: str, route: str, q, k, v, causal: bool,
+                   window: int) -> dict:
+    """One call of the flash kernel wrapper (outside any counted path),
+    held to its limit; raises unless it took ``route``."""
+    from repro_torch.kernels import flash as FA
+    before = dict(FA.launches_by_route)
+    y = FA.flash_attention_cuda(q, k, v, causal=causal, window=window)
+    took = [r for r in before if FA.launches_by_route[r] != before[r]]
+    if took != [route]:
+        raise AssertionError(f"{what}: took route(s) {took}, expected "
+                             f"{route}")
+    return {"case": what, "route": route, "max_abs_err": _hold_flash(
+        what, y, q, k, v, causal, window, route)}
 
 
 def phase_ops(dev_name: str) -> dict:
@@ -418,11 +513,22 @@ def phase_ops(dev_name: str) -> dict:
         c["y"] = ops.flash_attention(*c["sets"][0], causal=c["causal"],
                                      window=c["window"])
     torch.cuda.synchronize()
-    launches = {"lora_matmul": LM.launches, "flash_attention": FA.launches}
-    if launches != {"lora_matmul": len(lora), "flash_attention": len(flash)}:
+    launches = {"lora_matmul": LM.launches, "flash_attention": FA.launches,
+                "flash_attention_by_route": dict(FA.launches_by_route)}
+    for c in flash:
+        B, Sq, Sk, H, KV, d, dv = c["dims"]
+        c["route"] = FA.flash_route(c["dtype"], B, Sq, Sk, H, KV, d, dv)
+        if c["route"] != ("wgmma" if c["dtype"] == torch.bfloat16
+                          else "simt"):
+            raise AssertionError(f"flash {c['name']} {c['dtype']}: route "
+                                 f"{c['route']}")
+    n_bf16 = sum(c["dtype"] == torch.bfloat16 for c in flash)
+    want = {"lora_matmul": len(lora), "flash_attention": len(flash),
+            "flash_attention_by_route": {"wgmma": n_bf16,
+                                         "simt": len(flash) - n_bf16}}
+    if launches != want:
         raise AssertionError(f"ops path launches {launches}, expected "
-                             f"{len(lora)} lora_matmul and {len(flash)} "
-                             "flash_attention")
+                             f"{want}")
 
     cases = []
     for c in lora:
@@ -451,7 +557,8 @@ def phase_ops(dev_name: str) -> dict:
         dt, causal, window = c["dtype"], c["causal"], c["window"]
         q, k, v = c["sets"][0]
         ref = FA.plain_flash_attention(q, k, v, causal=causal, window=window)
-        err = _hold(f"flash_attention {c['name']} {dt}", c["y"], ref)
+        err = _hold_flash(f"flash_attention {c['name']} {dt}", c["y"], q, k,
+                          v, causal, window, c["route"], ref)
         model_err = None
         if c["name"] == "qwen2-0.5b.prefill" and dt == torch.float32:
             model = multihead_attention(q, k, v, causal=True, chunked=False)
@@ -497,7 +604,8 @@ def phase_ops(dev_name: str) -> dict:
             "kernel": "flash_attention", "shape": c["name"],
             "dims": {"B": B, "Sq": Sq, "Sk": Sk, "H": H, "KV": KV, "d": d,
                      "dv": dv}, "causal": causal, "window": window,
-            "dtype": str(dt).split(".")[-1],
+            "dtype": str(dt).split(".")[-1], "route": c["route"],
+            "tflops": 2 * pairs * (d + dv) / ms / 1e9,
             "max_abs_err": err, "model_max_abs_err": model_err,
             "ms": ms, "plain_ms": plain_ms, "library_ms": lib_ms,
             "library_call": lib_call, "library_max_abs_diff": lib_diff,
@@ -505,10 +613,14 @@ def phase_ops(dev_name: str) -> dict:
                      2 * pairs * (d + dv), bw,
                      peak_bf16 if dt == torch.bfloat16 else peak_f32)})
     for c in cases:
+        c["pct_of_bound"] = 100 * c["bound_ms"] / c["ms"]
+        extra = (f" route {c['route']} {c['tflops']:.1f} TFLOP/s"
+                 if "route" in c else "")
         print(f"ops {c['kernel']} {c['shape']} {c['dtype']}: err "
               f"{c['max_abs_err']:.3e} kernel {c['ms']:.4f} ms plain "
               f"{c['plain_ms']:.4f} ms library {c['library_ms']:.4f} ms "
-              f"bound {c['bound_ms']:.4f} ms ({c['bound_by']})", flush=True)
+              f"bound {c['bound_ms']:.4f} ms ({c['bound_by']}, "
+              f"{c['pct_of_bound']:.1f} %){extra}", flush=True)
     print(f"ops path launches: {launches}", flush=True)
 
     # every compiled instance, through the kernel wrappers (after the
@@ -525,18 +637,57 @@ def phase_ops(dev_name: str) -> dict:
                 what, LM.lora_matmul_cuda(x, w, a, b, scale=scale),
                 lora_matmul_ref(x, w, a, b, scale=scale))})
     for name, dims, causal, window in WIDTH_FLASH:
-        for dt in (torch.float32, torch.bfloat16):
-            q, k, v = qkv(*dims, dt)
-            what = f"flash_attention {name} {dims} {dt}"
-            widths.append({"case": what, "max_abs_err": _hold(
-                what, FA.flash_attention_cuda(q, k, v, causal=causal,
-                                              window=window),
-                FA.plain_flash_attention(q, k, v, causal=causal,
-                                         window=window))})
+        for dt, route in ((torch.float32, "simt"), (torch.bfloat16, "wgmma")):
+            widths.append(_flash_checked(f"flash_attention {name} {dims} {dt}",
+                                         route, *qkv(*dims, dt), causal,
+                                         window))
+    for name, dims, causal, window in FLASH_SIMT_BF16:
+        widths.append(_flash_checked(
+            f"flash_attention {name} {dims} bf16", "simt",
+            *qkv(*dims, torch.bfloat16), causal, window))
     print(f"ops widths: {len(widths)} kernel instances and shapes within "
           f"their limits, max err "
           f"{max(c['max_abs_err'] for c in widths):.3e}", flush=True)
     return {"launches": launches, "cases": cases, "widths": widths}
+
+
+def sass_counts() -> dict:
+    """Tensor-core instructions in the built libraries (``cuobjdump
+    -sass``): HGMMA in each flash wgmma kernel, HMMA in each bf16 BGMV
+    instance.  Raises if either total is 0, or any such kernel has none."""
+    import re
+
+    from repro_torch.kernels import build as kbuild
+
+    tool = os.path.join(os.path.dirname(kbuild.nvcc_path()), "cuobjdump")
+    out = {}
+    for lib, key, instr in [
+            ("flash_attention_wgmma", "flash_wgmma_kernel", "HGMMA"),
+            ("grouped_lora_matmul", "base_expand_kernelI13__nv_bfloat16",
+             "HMMA")]:
+        sass = subprocess.run([tool, "-sass", kbuild.BUILD_INFO[lib]["path"]],
+                              capture_output=True, text=True,
+                              check=True).stdout
+        pat = re.compile(rf"\b{instr}\.")
+        per, fn = {}, None
+        for line in sass.splitlines():
+            if "Function :" in line:
+                name = line.split("Function :")[1].strip()
+                fn = name[name.index(key):] if key in name else None
+                if fn:
+                    per[fn] = 0
+            elif fn and pat.search(line):
+                per[fn] += 1
+        out[lib] = {"instruction": instr, "total": sum(per.values()),
+                    "per_kernel": per}
+        if not per or not all(per.values()):
+            raise AssertionError(f"{lib}: {instr} counts {per}: a kernel "
+                                 "that should run on the tensor cores has "
+                                 "no tensor-core instruction")
+    print("sass: " + ", ".join(
+        f"{lib} {v['total']} {v['instruction']} over {len(v['per_kernel'])} "
+        f"kernels" for lib, v in out.items()), flush=True)
+    return out
 
 
 def make_adapters(cfg, rng, n: int):
@@ -567,9 +718,7 @@ def make_requests(cfg, rng, n: int, *, gen_len=None):
     return reqs
 
 
-def serve(cfg, params, adapters, requests, *, backend: str):
-    import torch
-
+def make_engine(cfg, params, adapters, *, backend: str):
     from repro_torch.serving import AdapterStore, ServingEngine
     store = AdapterStore(slots=BANK_SLOTS, rank=max(RANKS))
     for tid, (lora, rank) in adapters.items():
@@ -577,6 +726,13 @@ def serve(cfg, params, adapters, requests, *, backend: str):
     eng = ServingEngine(cfg, params, store, lora_scale=16.0 / max(RANKS),
                         max_slots=16, max_prompt=128, max_gen=64,
                         prefill_chunk=32, lora_backend=backend)
+    return eng, store
+
+
+def serve(cfg, params, adapters, requests, *, backend: str):
+    import torch
+
+    eng, store = make_engine(cfg, params, adapters, backend=backend)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     done = eng.run(requests)
@@ -619,7 +775,15 @@ def phase_serve() -> dict:
         raise AssertionError(f"grouped_lora_matmul launched {launches} times, "
                              f"expected 2*{cfg.num_blocks}*{calls} = {want}")
     tokens = sum(q.gen_len for q in reqs)
-    out = {"requests": len(reqs), "steps": eng.steps,
+    # a short second run under the profiler, after the counted one: does
+    # the BGMV kernels' time reach the serve wall, or does the host set the
+    # pace?
+    preqs = make_requests(cfg, np.random.default_rng(2),
+                          SERVE_PROFILE_REQUESTS, gen_len=16)
+    peng, _ = make_engine(cfg, params, adapters, backend="grouped")
+    prof = _profiled(lambda: peng.run(preqs), f"serve, {len(preqs)} requests",
+                     ("shrink_kernel", "base_expand_kernel"))
+    out = {"requests": len(reqs), "steps": eng.steps, "profile": prof,
            "dispatch_count": dict(dc), "adapter_loads": store.loads,
            "evictions": store.evictions, "wall_s": wall,
            "generated_tokens": tokens, "tokens_per_s": tokens / wall,
@@ -762,10 +926,11 @@ def phase_train() -> dict:
     return out
 
 
-def profile_round(trainer) -> dict:
-    """One more round under ``torch.profiler`` (after the counted rounds):
-    the round's wall, the device time summed over its kernels, and the
-    kernels that took the most device time."""
+def _profiled(fn, what: str, kernel_keys=()) -> dict:
+    """Run ``fn()`` under ``torch.profiler``: its wall, the device time
+    summed over its kernels, copies and memsets (the busy share is that
+    over the wall), the share of the device time in the kernels whose names
+    hold one of ``kernel_keys``, and the largest device rows."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -773,7 +938,7 @@ def profile_round(trainer) -> dict:
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        trainer.run_round()
+        fn()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     # device-side rows only (kernels, copies, memsets): the CPU op rows
@@ -782,18 +947,33 @@ def profile_round(trainer) -> dict:
             if e.device_type == torch.autograd.DeviceType.CUDA]
     rows.sort(key=lambda e: -e.self_device_time_total)
     device_s = sum(e.self_device_time_total for e in rows) / 1e6
+    mine = [e for e in rows if any(k in e.key for k in kernel_keys)]
+    mine_s = sum(e.self_device_time_total for e in mine) / 1e6
     out = {"wall_s": wall, "device_s": device_s,
            "device_busy_share": device_s / wall,
            "kernel_launches": sum(e.count for e in rows),
            "top": [{"name": e.key[:80], "count": e.count,
                     "device_ms": e.self_device_time_total / 1e3}
                    for e in rows[:8]]}
-    print(f"profile (one round, profiler on): wall {wall:.3f} s, device "
+    if kernel_keys:
+        out.update({"kernels": list(kernel_keys), "kernels_device_s": mine_s,
+                    "kernels_launches": sum(e.count for e in mine),
+                    "kernels_device_share": mine_s / max(device_s, 1e-12)})
+    print(f"profile ({what}, profiler on): wall {wall:.3f} s, device "
           f"{device_s:.3f} s busy ({out['device_busy_share']:.1%}), "
-          f"{out['kernel_launches']} kernel launches; top: "
+          f"{out['kernel_launches']} kernel launches"
+          + (f"; {'/'.join(kernel_keys)} {mine_s * 1e3:.1f} ms "
+             f"({out['kernels_device_share']:.1%} of the device time) over "
+             f"{out['kernels_launches']} launches" if kernel_keys else "")
+          + "; top: "
           + "; ".join(f"{t['name'][:40]} {t['device_ms']:.1f} ms x"
                       f"{t['count']}" for t in out["top"][:4]), flush=True)
     return out
+
+
+def profile_round(trainer) -> dict:
+    """One more round under ``torch.profiler`` (after the counted rounds)."""
+    return _profiled(trainer.run_round, "one round")
 
 
 def _leaves(tree):
@@ -907,6 +1087,7 @@ def main() -> int:
         phase_s[name] = time.perf_counter() - t0
         return out
 
+    sass = timed("sass", sass_counts)
     kern = timed("kernels", phase_kernels, dev_name)
     dagg = timed("dim_agg", phase_dim_agg, dev_name)
     opsr = timed("ops", phase_ops, dev_name)
@@ -962,28 +1143,39 @@ def main() -> int:
             "bound_ms": h["bound_ms"], "bound_by": h["bound_by"],
             "shape": {"dims": h["dims"], "rank_axis": h["rank_axis"],
                       "dtype": "float32"}})
-    # headlines for the ops kernels: qwen2-0.5b's wq LoRA site and its
-    # prefill attention, in bf16
-    for name, line, head_shape in [
-            ("lora_matmul", 54, "qwen2-0.5b.wq"),
-            ("flash_attention", 76, "qwen2-0.5b.prefill")]:
-        mine = [c for c in opsr["cases"] if c["kernel"] == name]
+    # headlines for the ops kernels: qwen2-0.5b's wq LoRA site in bf16, and
+    # its prefill attention on each flash route (bf16 on the tensor cores,
+    # f32 on the CUDA cores)
+    by_route = opsr["launches"]["flash_attention_by_route"]
+    for name, kernel, source, line, dtype, launches in [
+            ("lora_matmul", "lora_matmul", "lora_matmul", 54, "bfloat16",
+             opsr["launches"]["lora_matmul"]),
+            ("flash_attention", "flash_attention", "flash_attention_wgmma",
+             76, "bfloat16", by_route["wgmma"]),
+            ("flash_attention_simt", "flash_attention", "flash_attention",
+             76, "float32", by_route["simt"])]:
+        mine = [c for c in opsr["cases"] if c["kernel"] == kernel
+                and (kernel == "lora_matmul" or c["dtype"] == dtype)]
+        head_shape = ("qwen2-0.5b.wq" if kernel == "lora_matmul"
+                      else "qwen2-0.5b.prefill")
         h = next(c for c in mine if c["shape"] == head_shape
-                 and c["dtype"] == "bfloat16")
-        records.append({
+                 and c["dtype"] == dtype)
+        rec = {
             "name": name, "route": "cuda",
-            "source": f"src/repro_torch/kernels/csrc/{name}.cu",
-            "replaces": f"src/repro/kernels/{name}.py:{line}",
-            "launches": opsr["launches"][name],
+            "source": f"src/repro_torch/kernels/csrc/{source}.cu",
+            "replaces": f"src/repro/kernels/{kernel}.py:{line}",
+            "launches": launches,
             "max_abs_err": max(c["max_abs_err"] for c in mine),
-            "max_err_f32": max(c["max_abs_err"] for c in mine
-                               if c["dtype"] == "float32"),
-            "max_err_bf16": max(c["max_abs_err"] for c in mine
-                                if c["dtype"] == "bfloat16"),
             "ms": h["ms"], "plain_ms": h["plain_ms"],
             "library_ms": h["library_ms"], "library_call": h["library_call"],
             "bound_ms": h["bound_ms"], "bound_by": h["bound_by"],
-            "shape": {"case": head_shape, "dtype": "bfloat16"}})
+            "shape": {"case": head_shape, "dtype": dtype}}
+        if kernel == "lora_matmul":
+            rec["max_err_f32"] = max(c["max_abs_err"] for c in mine
+                                     if c["dtype"] == "float32")
+            rec["max_err_bf16"] = max(c["max_abs_err"] for c in mine
+                                      if c["dtype"] == "bfloat16")
+        records.append(rec)
     out_dir = os.path.join(ROOT, "build")
     os.makedirs(out_dir, exist_ok=True)
     with open(os.path.join(out_dir, "chip_smoke.json"), "w") as f:
@@ -994,6 +1186,7 @@ def main() -> int:
                                   for k, v in kbuild.BUILD_INFO.items()},
                    "kernels": records,
                    "kernel_cases": cases, "dim_agg_cases": dagg["cases"],
+                   "kernel_widths": kern["widths"], "sass": sass,
                    "ops": opsr,
                    "serve": served, "agreement": agree, "train": trained,
                    "train_agreement": train_agree}, f, indent=1)

@@ -4,10 +4,23 @@ mask and sliding window, q [B, Sq, H, d] and k, v [B, Sk, KV, d | dv]
 
 Port of ``repro.kernels.ops.flash_attention`` + the Pallas kernel
 ``flash_attention_pallas`` (``kernels/flash_attention.py``).  On a CUDA
-tensor the wrapper launches the hand-written Hopper kernel
-(``csrc/flash_attention.cu``, built by ``build.py`` at first use) or raises;
-on a CPU tensor it computes the plain version ``ref.flash_attention_ref``.
-``launches`` counts kernel launches.
+tensor the wrapper launches one of two hand-written Hopper kernels (built by
+``build.py`` at first use) or raises; on a CPU tensor it computes the plain
+version ``ref.flash_attention_ref``.  ``flash_route`` picks the kernel from
+the dtype and the shapes alone:
+
+* ``"wgmma"`` (``csrc/flash_attention_wgmma.cu``): bf16 on the tensor cores,
+  fed by TMA.  TMA needs every global stride to be a multiple of 16 bytes;
+  the kernel's tensor maps are (width, heads, seq, batch), so the head
+  widths d and dv must be multiples of 8.  The probabilities are rounded to
+  bf16 before P·V;
+* ``"simt"`` (``csrc/flash_attention.cu``): f32, and bf16 whose strides TMA
+  refuses (or with no keys), on the CUDA cores.  f32 stays there because
+  TF32 keeps 10 mantissa bits, too few for the f32 limit of 1e-4.
+
+A failed launch raises; it is never retried on the other route.
+``launches`` counts kernel launches on both routes, ``launches_by_route``
+each route's.
 
 Two differences from the reference's wrapper: the kernel reads query head
 h's key/value head ``h // (H // KV)`` in place, where the wrapper repeated
@@ -28,29 +41,49 @@ from repro_torch.kernels.ref import flash_attention_ref
 
 #: kernel launches since the last reset (CPU calls never count)
 launches = 0
+#: the same, per route
+launches_by_route = {"wgmma": 0, "simt": 0}
 #: widest query/key and value head the kernel takes (the repository's
 #: configurations go up to 256; the tiles then take about 140 KB of shared
 #: memory)
 MAX_HEAD_DIM = 256
 _DTYPES = (torch.float32, torch.bfloat16)
-_FN = None
+_FN: dict = {}
 
 
 def reset_launches() -> None:
     global launches
     launches = 0
+    for route in launches_by_route:
+        launches_by_route[route] = 0
 
 
-def _kernel_fn():
-    global _FN
-    if _FN is None:
+def flash_route(dtype: torch.dtype, B: int, Sq: int, Sk: int, H: int,
+                KV: int, d: int, dv: int) -> str:
+    """The kernel a CUDA call takes: ``"wgmma"`` for bf16 whose tensor maps
+    TMA takes (head widths d and dv multiples of 8, so that the head stride
+    d·2 or dv·2 and every stride above it are multiples of 16 bytes, and
+    at least one key), else ``"simt"``."""
+    del B, Sq, H, KV   # every stride above the head's is a multiple of it
+    if dtype == torch.bfloat16 and d % 8 == 0 and dv % 8 == 0 and Sk >= 1:
+        return "wgmma"
+    return "simt"
+
+
+def _kernel_fn(route: str):
+    if route not in _FN:
         from repro_torch.kernels.build import build
-        fn = build("flash_attention").flash_attention_launch
-        fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 10
-                       + [ctypes.c_void_p])
+        if route == "wgmma":
+            fn = build("flash_attention_wgmma").flash_attention_wgmma_launch
+            fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 9
+                           + [ctypes.c_void_p])
+        else:
+            fn = build("flash_attention").flash_attention_launch
+            fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 10
+                           + [ctypes.c_void_p])
         fn.restype = ctypes.c_int
-        _FN = fn
-    return _FN
+        _FN[route] = fn
+    return _FN[route]
 
 
 def _check_shapes(q: torch.Tensor, k: torch.Tensor,
@@ -72,8 +105,9 @@ def _check_shapes(q: torch.Tensor, k: torch.Tensor,
 def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                          *, causal: bool = True,
                          window: int = 0) -> torch.Tensor:
-    """Launch the kernel: q [B, Sq, H, d], k [B, Sk, KV, d], v [B, Sk, KV,
-    dv], all of one dtype, contiguous and on one CUDA device."""
+    """Launch the kernel of ``flash_route``'s route: q [B, Sq, H, d],
+    k [B, Sk, KV, d], v [B, Sk, KV, dv], all of one dtype, contiguous and
+    on one CUDA device."""
     global launches
     if q.dtype not in _DTYPES or k.dtype != q.dtype or v.dtype != q.dtype:
         raise TypeError(f"q/k/v dtypes {q.dtype}/{k.dtype}/{v.dtype}: need "
@@ -93,18 +127,27 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         if t.device.type != "cuda" or t.device != q.device:
             raise ValueError(f"{name} on {t.device}: the kernel needs every "
                              "operand on one CUDA device")
+    route = flash_route(q.dtype, B, Sq, Sk, H, KV, d, dv)
+    if route == "wgmma" and any(t.data_ptr() % 16 for t in (q, k, v)):
+        raise ValueError("the tensor-core route reads q, k and v with TMA, "
+                         "which needs 16-byte-aligned base addresses")
     o = torch.empty((B, Sq, H, dv), dtype=q.dtype, device=q.device)
     if B == 0 or Sq == 0 or H == 0:
         return o
-    err = _kernel_fn()(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), B, Sq, Sk,
-        H, KV, d, dv, int(bool(causal)), int(window),
-        int(q.dtype == torch.bfloat16),
-        torch.cuda.current_stream(q.device).cuda_stream)
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    ptrs = (q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr())
+    if route == "wgmma":
+        err = _kernel_fn(route)(*ptrs, B, Sq, Sk, H, KV, d, dv,
+                                int(bool(causal)), int(window), stream)
+    else:
+        err = _kernel_fn(route)(*ptrs, B, Sq, Sk, H, KV, d, dv,
+                                int(bool(causal)), int(window),
+                                int(q.dtype == torch.bfloat16), stream)
     if err != 0:
-        raise RuntimeError(f"flash_attention kernel launch failed: "
-                           f"cudaError {err}")
+        raise RuntimeError(f"flash_attention kernel launch failed on the "
+                           f"{route} route: cudaError {err}")
     launches += 1
+    launches_by_route[route] += 1
     return o
 
 
@@ -138,4 +181,5 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
 
 
 __all__ = ["MAX_HEAD_DIM", "flash_attention", "flash_attention_cuda",
-           "launches", "plain_flash_attention", "reset_launches"]
+           "flash_route", "launches", "launches_by_route",
+           "plain_flash_attention", "reset_launches"]

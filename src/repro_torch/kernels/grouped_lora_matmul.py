@@ -5,10 +5,14 @@
 
 Port of ``repro.kernels.ops.grouped_lora_matmul`` + the Pallas kernel
 ``grouped_lora_matmul_pallas`` (``kernels/lora_gather_matmul.py``).  On a
-CUDA tensor the wrapper launches the hand-written Hopper kernel
+CUDA tensor the wrapper launches the hand-written Hopper kernels
 (``csrc/grouped_lora_matmul.cu``, built by ``build.py`` at first use) or
 raises; on a CPU tensor it computes the plain version
-``ref.grouped_lora_matmul_ref``.  ``launches`` counts kernel launches.
+``ref.grouped_lora_matmul_ref``.  Each call launches two kernels — the
+shrink ``xa = x·A[idx]ᵀ`` into a scratch ``[M, r]`` f32 buffer that the
+wrapper allocates, then the base product and the expansion — and
+``launches`` counts calls (one per call), as the serve path's check
+``2 sites × layers × calls`` reads it.
 """
 
 from __future__ import annotations
@@ -19,9 +23,10 @@ import torch
 
 from repro_torch.kernels.ref import grouped_lora_matmul_ref
 
-#: kernel launches since the last reset (CPU calls never count)
+#: kernel calls since the last reset (CPU calls never count)
 launches = 0
-#: the kernel keeps x[m] and xa in shared memory as f32
+#: the shrink kernel keeps x rows in shared memory as f32 (K + r bounds the
+#: shapes, as it always has)
 MAX_RANK = 128
 MAX_SMEM_BYTES = 232_448
 _DTYPES = (torch.float32, torch.bfloat16)
@@ -38,7 +43,7 @@ def _kernel_fn():
     if _FN is None:
         from repro_torch.kernels.build import build
         fn = build("grouped_lora_matmul").grouped_lora_matmul_launch
-        fn.argtypes = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 5
+        fn.argtypes = ([ctypes.c_void_p] * 7 + [ctypes.c_int] * 5
                        + [ctypes.c_float, ctypes.c_int, ctypes.c_int,
                           ctypes.c_void_p])
         fn.restype = ctypes.c_int
@@ -59,7 +64,7 @@ def grouped_lora_matmul_cuda(x: torch.Tensor, w: torch.Tensor,
                              a: torch.Tensor, b: torch.Tensor,
                              idx: torch.Tensor, *,
                              scale: float = 1.0) -> torch.Tensor:
-    """Launch the kernel on 2-D operands: x [M, K], w [K, N], a [G, r, K],
+    """Launch the kernels on 2-D operands: x [M, K], w [K, N], a [G, r, K],
     b [G, N, r], idx int32 [M] — all on one CUDA device and contiguous."""
     global launches
     M, K = x.shape
@@ -93,9 +98,11 @@ def grouped_lora_matmul_cuda(x: torch.Tensor, w: torch.Tensor,
     y = torch.empty((M, N), dtype=x.dtype, device=x.device)
     if M == 0 or N == 0:
         return y
+    xa = torch.empty((M, r), dtype=torch.float32, device=x.device)
     err = _kernel_fn()(
         x.data_ptr(), w.data_ptr(), a.data_ptr(), b.data_ptr(),
-        idx.data_ptr(), y.data_ptr(), M, K, N, G, r, float(scale),
+        idx.data_ptr(), xa.data_ptr(), y.data_ptr(), M, K, N, G, r,
+        float(scale),
         int(x.dtype == torch.bfloat16), int(a.dtype == torch.bfloat16),
         torch.cuda.current_stream(x.device).cuda_stream)
     if err != 0:

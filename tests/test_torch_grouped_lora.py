@@ -147,7 +147,7 @@ def test_plain_version_accumulates_in_f32_for_bf16():
 
 @pytest.mark.parametrize("bad", ["dtype_x", "dtype_w", "dtype_bank", "idx64",
                                  "shape_w", "shape_b", "shape_idx", "rank",
-                                 "noncontig", "cpu"])
+                                 "wide_k", "noncontig", "cpu"])
 def test_kernel_wrapper_rejects_bad_operands(bad):
     """The CUDA entry checks types, shapes, rank, contiguity and device
     before anything launches; a CPU tensor never reaches the kernel."""
@@ -170,6 +170,10 @@ def test_kernel_wrapper_rejects_bad_operands(bad):
     elif bad == "rank":
         a = torch.zeros(2, glm.MAX_RANK + 1, 32)
         b = torch.zeros(2, 16, glm.MAX_RANK + 1)
+    elif bad == "wide_k":   # x rows beyond the shrink kernel's shared memory
+        K = glm.MAX_SMEM_BYTES // 4
+        x, w = torch.zeros(9, K), torch.zeros(K, 16)
+        a = torch.zeros(2, 4, K)
     elif bad == "noncontig":
         w = torch.zeros(16, 32).T
     with pytest.raises(exc):
