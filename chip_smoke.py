@@ -9,7 +9,10 @@ Phases (each raises on failure; the script then exits non-zero):
 2. build — every CUDA kernel of the port, from the sources in this
    checkout, one ``nvcc`` per source, all started together; then
    ``cuobjdump -sass`` counts the tensor-core instructions: HGMMA in every
-   flash wgmma kernel and HMMA in every bf16 BGMV instance must be > 0;
+   flash and LoRA wgmma kernel, HMMA in every bf16 BGMV instance and TF32
+   HMMA in every 3xTF32 LoRA instance must be > 0; a probe times
+   ``mma.sync`` TF32 products in a register-only loop (the ceiling of the
+   3xTF32 route's instruction);
 3. kernels — each kernel against its plain PyTorch version on the card at
    its path's shapes, with the stated tolerances, and timed with CUDA
    events (kernel, plain version, library yardstick) beside the card's
@@ -23,16 +26,17 @@ Phases (each raises on failure; the script then exits non-zero):
    prefill, a gemma3-12b sliding-window layer and a non-causal ragged
    length (each in f32 and bf16) and the benchmark shape ``B4_S2048_d64``
    (bf16); each once through ``ops`` with the launch counts set to 0 just
-   before and read just after (one launch a case; every bf16 flash case on
-   the ``wgmma`` route, every f32 one on ``simt``), then each output
-   against its plain version (f32 within 1e-4; bf16 within one rounding
-   step more, and on the tensor-core flash route 2^-8 · plain(q, k, |v|)
-   more for the probabilities rounded to bf16), the f32 prefill against
+   before and read just after (one launch a case; every bf16 case on the
+   ``wgmma`` route of its kernel, every f32 LoRA case on ``tf32x3`` and
+   every f32 flash case on ``simt``), then each output against its plain
+   version (f32 within 1e-4; bf16 within one rounding step more, and on
+   the tensor-core flash route 2^-8 · plain(q, k, |v|) more for the
+   probabilities rounded to bf16), the f32 prefill against
    ``multihead_attention``, kernel, plain version and library yardstick
-   timed beside the bound (route, TFLOP/s, % of bound), and every compiled
-   instance of both kernels (each register width, dtype pairing and head
-   width, rows with no valid key, a bf16 shape TMA refuses) checked at
-   small shapes on its route;
+   timed beside the bound (route, TFLOP/s, % of bound, blocks), and every
+   compiled instance of both kernels (each rank width, dtype pairing and
+   head width, rows with no valid key, bf16 shapes TMA refuses) checked at
+   small shapes on its asserted route;
 5. serve — qwen2-0.5b at full width in bf16 (random weights from a seed),
    12 tenants of ranks 8/16/32/64 through an 8-slot adapter bank, 48
    requests with chunked prefill and ``lora_backend="grouped"``; every
@@ -84,16 +88,17 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 SRC = os.path.join(ROOT, "src")
 
 # data-sheet peaks (NVIDIA): bytes/s of device memory, dense bf16 tensor
-# core and f32 (non-tensor-core) operations/s
-PEAKS = [("H200", 4.8e12, 989e12, 67e12),
-         ("H100 PCIe", 2.0e12, 756e12, 51e12),
-         ("H100", 3.35e12, 989e12, 67e12)]
+# core, f32 (non-tensor-core) and dense TF32 tensor-core operations/s
+PEAKS = [("H200", 4.8e12, 989e12, 67e12, 495e12),
+         ("H100 PCIe", 2.0e12, 756e12, 51e12, 378e12),
+         ("H100", 3.35e12, 989e12, 67e12, 495e12)]
 
 KERNEL_SHAPES = [(16, 896, 896), (16, 896, 128), (512, 896, 896),
                  (512, 896, 128)]
 N_TENANTS, RANKS, BANK_SLOTS = 12, (8, 16, 32, 64), 8
 KERNEL_SOURCES = ("grouped_lora_matmul", "dim_agg", "lora_matmul",
-                  "flash_attention", "flash_attention_wgmma")
+                  "lora_matmul_wgmma", "flash_attention",
+                  "flash_attention_wgmma")
 # every compiled BGMV instance at small ragged shapes (checked, not timed):
 # (M, K, N, r) over each pairing of x/W and bank types; M <= 64 takes the
 # decode tiling, M > 64 the prefill tiling; K or N not a multiple of 8
@@ -130,13 +135,18 @@ FLASH_CASES = [("qwen2-0.5b.prefill", (2, 2048, 2048, 14, 2, 64, 64), True, 0,
                ("noncausal_ragged", (1, 1000, 1000, 14, 2, 64, 64), False, 0,
                 ("bfloat16", "float32"))]
 # every compiled instance of the two kernels at a small ragged shape (checked,
-# not timed): the LoRA kernel at one rank of each register width (r <= 16,
-# 32, 64, 128) and each pairing of x/W and A/B types; flash in f32 (the simt
+# not timed): the LoRA kernels at r = 8, 24, 40, 128, every instance of the
+# tf32x3 route (r <= 32, 64, 128) and the wgmma route's R = 8, 32, 64, 128
+# (R = 16 runs in the ops cases at r = 16): N = 150 at each pairing of x/W
+# and A/B types takes tf32x3 (bf16 too, whose row stride of 300 bytes TMA
+# refuses), N = 152 in bf16 takes wgmma with ragged M and K and ranks past
+# r zero-filled; flash in f32 (the simt
 # route) and bf16 (the wgmma route) at value widths of each instance of both
 # (dv <= 32, 64, 128, 192, 256), d = 72 (padded to 80 in shared memory), MLA's
 # d 192 with dv 128, Sq != Sk, a window without the causal mask, and rows
 # that see no key at all (query positions >= Sk + window - 1)
 WIDTH_LORA = [(130, 200, 150, r) for r in (8, 24, 40, 128)]
+WIDTH_LORA_WGMMA = [(130, 200, 152, r) for r in (8, 24, 40, 128)]
 WIDTH_FLASH = [("d32", (2, 300, 300, 4, 2, 32, 32), True, 0),
                ("d72.noncausal_ragged", (1, 300, 260, 6, 3, 72, 72), False, 0),
                ("d128.window", (1, 256, 256, 4, 1, 128, 128), True, 64),
@@ -148,21 +158,25 @@ WIDTH_FLASH = [("d32", (2, 300, 300, 4, 2, 32, 32), True, 0),
                ("d256.window", (2, 300, 200, 2, 1, 256, 256), True, 100)]
 # bf16 whose strides TMA refuses (d * 2 = 72 bytes): the simt route
 FLASH_SIMT_BF16 = [("d36.tma_refused", (1, 200, 200, 1, 1, 36, 36), True, 0)]
-# the limits against the plain version: f32 outputs within 1e-4 (sums over
-# K <= 4096 or Sk <= 4096 in another order, inputs scaled as the reference's
-# kernel tests scale them); a bf16 output is the same f32 value rounded
-# once, so it may sit one bf16 step (2^-7 of its magnitude) from the plain
-# version's, beside the f32 difference.  On the tensor-core flash route the
-# probabilities are rounded to bf16 before P.V (a relative error of 2^-9 on
-# each p), so an output also moves by up to 2^-9 sum_j p_j |v_j| / l: it is
-# held to 2^-8 (twice that) times the plain version on |v|
+# the limits against the plain version, on every route: f32 outputs within
+# 1e-4 (sums over K <= 4096 or Sk <= 4096 in another order, inputs scaled as
+# the reference's kernel tests scale them); a bf16 output is the same f32
+# value rounded once, so it may sit one bf16 step (2^-7 of its magnitude)
+# from the plain version's, beside the f32 difference.  On the tensor-core
+# flash route the probabilities are rounded to bf16 before P.V (a relative
+# error of 2^-9 on each p), so an output also moves by up to
+# 2^-9 sum_j p_j |v_j| / l: it is held to 2^-8 (twice that) times the plain
+# version on |v|
 F32_ATOL, BF16_RTOL, P_BF16_RTOL = 1e-4, 2.0 ** -7, 2.0 ** -8
 
 
 def peaks_for(name: str):
-    for key, bw, bf16, f32 in PEAKS:
+    """Memory rate, bf16 peak and the peak that bounds f32 work: the f32
+    CUDA-core peak or a third of the TF32 peak, whichever is larger (the
+    3xTF32 route runs three TF32 products for each f32 one)."""
+    for key, bw, bf16, f32, tf32 in PEAKS:
         if key in name:
-            return bw, bf16, f32
+            return bw, bf16, max(f32, tf32 / 3)
     raise RuntimeError(f"no data-sheet peaks for {name!r}")
 
 
@@ -443,6 +457,34 @@ def _flash_checked(what: str, route: str, q, k, v, causal: bool,
         what, y, q, k, v, causal, window, route)}
 
 
+def _lora_checked(what: str, route: str, x, w, a, b, scale: float) -> dict:
+    """One call of the LoRA kernel wrapper (outside any counted path), held
+    to its limit; raises unless it took ``route``."""
+    from repro_torch.kernels import lora_matmul as LM
+    from repro_torch.kernels.ref import lora_matmul_ref
+    before = dict(LM.launches_by_route)
+    y = LM.lora_matmul_cuda(x, w, a, b, scale=scale)
+    took = [r for r in before if LM.launches_by_route[r] != before[r]]
+    if took != [route]:
+        raise AssertionError(f"{what}: took route(s) {took}, expected "
+                             f"{route}")
+    return {"case": what, "route": route, "max_abs_err": _hold(
+        what, y, lora_matmul_ref(x, w, a, b, scale=scale))}
+
+
+def _lora_blocks(route: str, M: int, K: int, N: int, sms: int) -> int:
+    """Blocks the route's kernel launches: 128 x 128 tiles of y on the
+    tensor-core route; 64 x 128 tiles on the 3xTF32 route, each split over
+    K by 2 or 4 blocks while the tiles fill fewer than one block a SM
+    (``k_split`` in ``csrc/lora_matmul.cu``)."""
+    if route == "wgmma":
+        return -(-N // 128) * -(-M // 128)
+    tiles, nk, split = -(-N // 128) * -(-M // 64), -(-K // 32), 1
+    while split < 4 and tiles * split < sms and nk >= 4 * split:
+        split *= 2
+    return tiles * split
+
+
 def phase_ops(dev_name: str) -> dict:
     """The ops path: ``ops.fused_lora_matmul`` and ``ops.flash_attention``
     driven once at every case with the launch counts set to 0 just before
@@ -514,7 +556,14 @@ def phase_ops(dev_name: str) -> dict:
                                      window=c["window"])
     torch.cuda.synchronize()
     launches = {"lora_matmul": LM.launches, "flash_attention": FA.launches,
+                "lora_matmul_by_route": dict(LM.launches_by_route),
                 "flash_attention_by_route": dict(FA.launches_by_route)}
+    for c in lora:
+        c["route"] = LM.lora_route(c["dtype"], c["dtype"], *c["dims"])
+        if c["route"] != ("wgmma" if c["dtype"] == torch.bfloat16
+                          else "tf32x3"):
+            raise AssertionError(f"lora {c['name']} {c['dtype']}: route "
+                                 f"{c['route']}")
     for c in flash:
         B, Sq, Sk, H, KV, d, dv = c["dims"]
         c["route"] = FA.flash_route(c["dtype"], B, Sq, Sk, H, KV, d, dv)
@@ -523,13 +572,17 @@ def phase_ops(dev_name: str) -> dict:
             raise AssertionError(f"flash {c['name']} {c['dtype']}: route "
                                  f"{c['route']}")
     n_bf16 = sum(c["dtype"] == torch.bfloat16 for c in flash)
+    n_lora_bf16 = sum(c["dtype"] == torch.bfloat16 for c in lora)
     want = {"lora_matmul": len(lora), "flash_attention": len(flash),
+            "lora_matmul_by_route": {"wgmma": n_lora_bf16,
+                                     "tf32x3": len(lora) - n_lora_bf16},
             "flash_attention_by_route": {"wgmma": n_bf16,
                                          "simt": len(flash) - n_bf16}}
     if launches != want:
         raise AssertionError(f"ops path launches {launches}, expected "
                              f"{want}")
 
+    n_sms = torch.cuda.get_device_properties(0).multi_processor_count
     cases = []
     for c in lora:
         M, K, N, r = c["dims"]
@@ -543,15 +596,18 @@ def phase_ops(dev_name: str) -> dict:
             x, w, a, b, scale=scale), c["sets"])
         lib_ms = cuda_time_ms(lambda w, a, b: torch.matmul(x, w), c["sets"])
         size = torch.finfo(dt).bits // 8
+        ops_n = 2 * M * N * K + 2 * M * r * (K + N)
+        blocks = _lora_blocks(c["route"], M, K, N, n_sms)
         cases.append({
             "kernel": "lora_matmul", "shape": c["name"], "M": M, "K": K,
             "N": N, "r": r, "dtype": str(dt).split(".")[-1],
+            "route": c["route"], "tflops": ops_n / ms / 1e9,
+            "blocks": blocks, "sms": n_sms, "sm_waves": blocks / n_sms,
             "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
             "library_ms": lib_ms,
             "library_call": "torch.matmul(x, W): the base product only",
-            **_bound((M * K + K * N + M * N + r * (K + N)) * size,
-                     2 * M * N * K + 2 * M * r * (K + N), bw,
-                     peak_bf16 if dt == torch.bfloat16 else peak_f32)})
+            **_bound((M * K + K * N + M * N + r * (K + N)) * size, ops_n,
+                     bw, peak_bf16 if dt == torch.bfloat16 else peak_f32)})
     for c in flash:
         B, Sq, Sk, H, KV, d, dv = c["dims"]
         dt, causal, window = c["dtype"], c["causal"], c["window"]
@@ -614,8 +670,9 @@ def phase_ops(dev_name: str) -> dict:
                      peak_bf16 if dt == torch.bfloat16 else peak_f32)})
     for c in cases:
         c["pct_of_bound"] = 100 * c["bound_ms"] / c["ms"]
-        extra = (f" route {c['route']} {c['tflops']:.1f} TFLOP/s"
-                 if "route" in c else "")
+        extra = f" route {c['route']} {c['tflops']:.1f} TFLOP/s"
+        if "blocks" in c:
+            extra += f" blocks {c['blocks']} for {c['sms']} SMs"
         print(f"ops {c['kernel']} {c['shape']} {c['dtype']}: err "
               f"{c['max_abs_err']:.3e} kernel {c['ms']:.4f} ms plain "
               f"{c['plain_ms']:.4f} ms library {c['library_ms']:.4f} ms "
@@ -631,11 +688,14 @@ def phase_ops(dev_name: str) -> dict:
                          (torch.bfloat16, torch.bfloat16),
                          (torch.bfloat16, torch.float32),
                          (torch.float32, torch.bfloat16)]:
-            x, w, a, b = lora_operands(M, K, N, r, xdt, adt)
-            what = f"lora_matmul {M}x{K}x{N} r{r} {xdt}/{adt}"
-            widths.append({"case": what, "max_abs_err": _hold(
-                what, LM.lora_matmul_cuda(x, w, a, b, scale=scale),
-                lora_matmul_ref(x, w, a, b, scale=scale))})
+            widths.append(_lora_checked(
+                f"lora_matmul {M}x{K}x{N} r{r} {xdt}/{adt}", "tf32x3",
+                *lora_operands(M, K, N, r, xdt, adt), scale))
+    for M, K, N, r in WIDTH_LORA_WGMMA:
+        widths.append(_lora_checked(
+            f"lora_matmul {M}x{K}x{N} r{r} bf16/bf16", "wgmma",
+            *lora_operands(M, K, N, r, torch.bfloat16, torch.bfloat16),
+            scale))
     for name, dims, causal, window in WIDTH_FLASH:
         for dt, route in ((torch.float32, "simt"), (torch.bfloat16, "wgmma")):
             widths.append(_flash_checked(f"flash_attention {name} {dims} {dt}",
@@ -651,24 +711,101 @@ def phase_ops(dev_name: str) -> dict:
     return {"launches": launches, "cases": cases, "widths": widths}
 
 
+# a register-only loop of independent mma.sync.m16n8k8 TF32 products: the
+# rate the 3xTF32 route's instruction can reach on this card
+PROBE_MMA_TF32 = r"""
+#include <cuda_runtime.h>
+#include <stdint.h>
+__global__ void probe(float* out, int iters) {
+  float c[16][4] = {};
+  const uint32_t a0 = threadIdx.x, a1 = 3u * threadIdx.x;
+  const uint32_t b0 = 5u * threadIdx.x, b1 = 7u * threadIdx.x;
+  for (int it = 0; it < iters; ++it)
+#pragma unroll
+    for (int t = 0; t < 16; ++t)
+      asm volatile(
+          "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+          "{%0,%1,%2,%3}, {%4,%5,%4,%5}, {%6,%7}, {%0,%1,%2,%3};"
+          : "+f"(c[t][0]), "+f"(c[t][1]), "+f"(c[t][2]), "+f"(c[t][3])
+          : "r"(a0), "r"(a1), "r"(b0), "r"(b1));
+  float s = 0.f;
+  for (int t = 0; t < 16; ++t) s += c[t][0] + c[t][1] + c[t][2] + c[t][3];
+  out[blockIdx.x * blockDim.x + threadIdx.x] = s;
+}
+// TFLOP/s of 16 independent products a warp, 8 warps x 2 blocks a SM
+extern "C" double probe_mma_tf32(int sms) {
+  const int blocks = 2 * sms, threads = 256, iters = 4096;
+  float* out;
+  if (cudaMalloc(&out, blocks * threads * sizeof(float)) != cudaSuccess)
+    return -1.0;
+  probe<<<blocks, threads>>>(out, 16);
+  cudaEvent_t e0, e1;
+  cudaEventCreate(&e0);
+  cudaEventCreate(&e1);
+  cudaEventRecord(e0);
+  probe<<<blocks, threads>>>(out, iters);
+  cudaEventRecord(e1);
+  cudaEventSynchronize(e1);
+  float ms = 0.f;
+  cudaEventElapsedTime(&ms, e0, e1);
+  const bool ok = cudaGetLastError() == cudaSuccess;
+  cudaFree(out);
+  return ok ? (double)blocks * 8 * iters * 16 * 2048.0 / ms / 1e9 : -1.0;
+}
+"""
+
+
+def probe_mma_tf32() -> dict:
+    """Build and run ``PROBE_MMA_TF32``: the mma.sync TF32 rate, against
+    which the 3xTF32 route's rate is read."""
+    import ctypes
+
+    import torch
+
+    from repro_torch.kernels import build as kbuild
+
+    out_dir = os.path.join(ROOT, "build", "probe")
+    os.makedirs(out_dir, exist_ok=True)
+    src, lib = (os.path.join(out_dir, f"mma_tf32.{e}") for e in ("cu", "so"))
+    with open(src, "w") as f:
+        f.write(PROBE_MMA_TF32)
+    subprocess.run([kbuild.nvcc_path(), *kbuild.NVCC_FLAGS, "-o", lib, src],
+                   capture_output=True, text=True, check=True)
+    fn = ctypes.CDLL(lib).probe_mma_tf32
+    fn.argtypes, fn.restype = [ctypes.c_int], ctypes.c_double
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    tflops = fn(sms)
+    if not tflops > 0:
+        raise RuntimeError("the mma.sync TF32 probe failed")
+    print(f"probe: mma.sync.m16n8k8 TF32, 16 independent products a warp, "
+          f"16 warps a SM: {tflops:.1f} TFLOP/s", flush=True)
+    return {"mma_sync_tf32_tflops": tflops}
+
+
 def sass_counts() -> dict:
     """Tensor-core instructions in the built libraries (``cuobjdump
-    -sass``): HGMMA in each flash wgmma kernel, HMMA in each bf16 BGMV
-    instance.  Raises if either total is 0, or any such kernel has none."""
+    -sass``): HGMMA in each flash and LoRA wgmma kernel, HMMA in each bf16
+    BGMV instance, TF32 HMMA in each 3xTF32 LoRA instance.  Raises if a
+    total is 0, or any such kernel has none."""
     import re
 
     from repro_torch.kernels import build as kbuild
 
     tool = os.path.join(os.path.dirname(kbuild.nvcc_path()), "cuobjdump")
     out = {}
-    for lib, key, instr in [
-            ("flash_attention_wgmma", "flash_wgmma_kernel", "HGMMA"),
+    for lib, key, instr, regex in [
+            ("flash_attention_wgmma", "flash_wgmma_kernel", "HGMMA",
+             r"\bHGMMA\."),
+            ("lora_matmul_wgmma", "lora_wgmma_kernel", "HGMMA",
+             r"\bHGMMA\."),
             ("grouped_lora_matmul", "base_expand_kernelI13__nv_bfloat16",
-             "HMMA")]:
+             "HMMA", r"\bHMMA\."),
+            ("lora_matmul", "lora_tf32x3_kernel", "HMMA.TF32",
+             r"\bHMMA\.\S*TF32")]:
         sass = subprocess.run([tool, "-sass", kbuild.BUILD_INFO[lib]["path"]],
                               capture_output=True, text=True,
                               check=True).stdout
-        pat = re.compile(rf"\b{instr}\.")
+        pat = re.compile(regex)
         per, fn = {}, None
         for line in sass.splitlines():
             if "Function :" in line:
@@ -1088,6 +1225,7 @@ def main() -> int:
         return out
 
     sass = timed("sass", sass_counts)
+    probe = timed("probe", probe_mma_tf32)
     kern = timed("kernels", phase_kernels, dev_name)
     dagg = timed("dim_agg", phase_dim_agg, dev_name)
     opsr = timed("ops", phase_ops, dev_name)
@@ -1143,19 +1281,22 @@ def main() -> int:
             "bound_ms": h["bound_ms"], "bound_by": h["bound_by"],
             "shape": {"dims": h["dims"], "rank_axis": h["rank_axis"],
                       "dtype": "float32"}})
-    # headlines for the ops kernels: qwen2-0.5b's wq LoRA site in bf16, and
-    # its prefill attention on each flash route (bf16 on the tensor cores,
-    # f32 on the CUDA cores)
+    # headlines for the ops kernels, one per route: qwen2-0.5b's wq LoRA
+    # site (bf16 on wgmma, f32 in 3xTF32) and its prefill attention (bf16 on
+    # wgmma, f32 on the CUDA cores)
     by_route = opsr["launches"]["flash_attention_by_route"]
+    lora_by_route = opsr["launches"]["lora_matmul_by_route"]
     for name, kernel, source, line, dtype, launches in [
-            ("lora_matmul", "lora_matmul", "lora_matmul", 54, "bfloat16",
-             opsr["launches"]["lora_matmul"]),
+            ("lora_matmul", "lora_matmul", "lora_matmul_wgmma", 54,
+             "bfloat16", lora_by_route["wgmma"]),
+            ("lora_matmul_tf32x3", "lora_matmul", "lora_matmul", 54,
+             "float32", lora_by_route["tf32x3"]),
             ("flash_attention", "flash_attention", "flash_attention_wgmma",
              76, "bfloat16", by_route["wgmma"]),
             ("flash_attention_simt", "flash_attention", "flash_attention",
              76, "float32", by_route["simt"])]:
         mine = [c for c in opsr["cases"] if c["kernel"] == kernel
-                and (kernel == "lora_matmul" or c["dtype"] == dtype)]
+                and c["dtype"] == dtype]
         head_shape = ("qwen2-0.5b.wq" if kernel == "lora_matmul"
                       else "qwen2-0.5b.prefill")
         h = next(c for c in mine if c["shape"] == head_shape
@@ -1170,11 +1311,6 @@ def main() -> int:
             "library_ms": h["library_ms"], "library_call": h["library_call"],
             "bound_ms": h["bound_ms"], "bound_by": h["bound_by"],
             "shape": {"case": head_shape, "dtype": dtype}}
-        if kernel == "lora_matmul":
-            rec["max_err_f32"] = max(c["max_abs_err"] for c in mine
-                                     if c["dtype"] == "float32")
-            rec["max_err_bf16"] = max(c["max_abs_err"] for c in mine
-                                      if c["dtype"] == "bfloat16")
         records.append(rec)
     out_dir = os.path.join(ROOT, "build")
     os.makedirs(out_dir, exist_ok=True)
@@ -1187,6 +1323,7 @@ def main() -> int:
                    "kernels": records,
                    "kernel_cases": cases, "dim_agg_cases": dagg["cases"],
                    "kernel_widths": kern["widths"], "sass": sass,
+                   "probe": probe,
                    "ops": opsr,
                    "serve": served, "agreement": agree, "train": trained,
                    "train_agreement": train_agree}, f, indent=1)

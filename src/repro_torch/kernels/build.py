@@ -2,9 +2,10 @@
 plain C interface, and load them with ``ctypes``.
 
 A library is built at first use and cached on disk by the hash of its
-sources and flags (``build/kernels/`` at the repository root, or
-``$REPRO_TORCH_BUILD_DIR``).  Nothing here runs on import: a machine
-without ``nvcc`` can import every module of the port.
+source, every shared header (``csrc/*.cuh``) and the flags
+(``build/kernels/`` at the repository root, or ``$REPRO_TORCH_BUILD_DIR``).
+Nothing here runs on import: a machine without ``nvcc`` can import every
+module of the port.
 
     lib = build("grouped_lora_matmul")      # ctypes.CDLL, built on demand
 """
@@ -47,14 +48,24 @@ def nvcc_path() -> str:
                        "CUDA kernels are built from source at first use")
 
 
+def source_digest(name: str, csrc: Path = CSRC) -> str:
+    """The cache key of library ``name``: a hash of ``<name>.cu``, of every
+    ``*.cuh`` header beside it (by name and content, so that an edit to a
+    header rebuilds the libraries that may include it) and of the flags."""
+    h = hashlib.sha256((csrc / f"{name}.cu").read_bytes())
+    for header in sorted(csrc.glob("*.cuh")):
+        h.update(header.name.encode() + b"\0" + header.read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    return h.hexdigest()[:16]
+
+
 def build(name: str) -> ctypes.CDLL:
     """Return the loaded library built from ``csrc/<name>.cu``, compiling
-    it first unless a library for the same source and flags exists."""
+    it first unless a library for the same sources and flags exists."""
     if name in _LOADED:
         return _LOADED[name]
     src = CSRC / f"{name}.cu"
-    digest = hashlib.sha256(src.read_bytes() + " ".join(NVCC_FLAGS).encode())
-    out = build_dir() / f"{name}-{digest.hexdigest()[:16]}.so"
+    out = build_dir() / f"{name}-{source_digest(name)}.so"
     info = {"seconds": 0.0, "log": "", "path": str(out)}
     if not out.exists():
         t0 = time.perf_counter()
@@ -77,4 +88,4 @@ def build(name: str) -> ctypes.CDLL:
     return lib
 
 
-__all__ = ["BUILD_INFO", "build", "build_dir", "nvcc_path"]
+__all__ = ["BUILD_INFO", "build", "build_dir", "nvcc_path", "source_digest"]

@@ -58,17 +58,13 @@
 // head over the bf16 tensor-core peak, against the bytes of q, k, v and o;
 // at prefill lengths the operations bound it.
 //
-// The tensor maps are built on each call by cuTensorMapEncodeTiled, which
-// lives in libcuda rather than the CUDA runtime; it is fetched at run time
-// (cudaGetDriverEntryPoint), so the library links against nothing beyond
-// the CUDA runtime.
+// The tensor maps are built on each call by cuTensorMapEncodeTiled (fetched
+// at run time, hopper.cuh); the TMA, mbarrier and wgmma helpers are in
+// hopper.cuh, shared with lora_matmul_wgmma.cu.
 
-#include <cuda.h>
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
 #include <math.h>
-#include <stddef.h>
-#include <stdint.h>
+
+#include "hopper.cuh"
 
 namespace {
 
@@ -81,126 +77,7 @@ constexpr int kMaxStages = 4;
 constexpr size_t kSmemLimit = 232448;
 constexpr float kNegInf = -1e30f;        // the running max before any key
 
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-// --- mbarriers -----------------------------------------------------------
-
-__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;" :: "r"(bar), "r"(count)
-               : "memory");
-}
-
-__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;"
-               :: "r"(bar), "r"(bytes) : "memory");
-}
-
-__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];" :: "r"(bar)
-               : "memory");
-}
-
-// wait until the barrier's phase differs from `parity`
-__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
-  uint32_t done;
-  do {
-    asm volatile(
-        "{\n .reg .pred p;\n"
-        " mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        " selp.u32 %0, 1, 0, p;\n}"
-        : "=r"(done) : "r"(bar), "r"(parity) : "memory");
-  } while (!done);
-}
-
-// --- TMA -----------------------------------------------------------------
-
-__device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map,
-                                         uint32_t bar, int c0, int c1, int c2,
-                                         int c3) {
-  asm volatile(
-      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx::bytes"
-      " [%0], [%1, {%3, %4, %5, %6}], [%2];"
-      :: "r"(dst), "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0),
-         "r"(c1), "r"(c2), "r"(c3)
-      : "memory");
-}
-
-// --- wgmma ---------------------------------------------------------------
-
-// shared-memory matrix descriptor, 128-byte swizzle
-__device__ __forceinline__ uint64_t make_desc(uint32_t addr, uint32_t lbo,
-                                              uint32_t sbo) {
-  return (uint64_t)((addr & 0x3FFFF) >> 4)
-         | ((uint64_t)((lbo >> 4) & 0x3FFF) << 16)
-         | ((uint64_t)((sbo >> 4) & 0x3FFF) << 32)
-         | ((uint64_t)1 << 62);
-}
-
-__device__ __forceinline__ void wgmma_fence() {
-  asm volatile("wgmma.fence.sync.aligned;" ::: "memory");
-}
-__device__ __forceinline__ void wgmma_commit() {
-  asm volatile("wgmma.commit_group.sync.aligned;" ::: "memory");
-}
-__device__ __forceinline__ void wgmma_wait_all() {
-  asm volatile("wgmma.wait_group.sync.aligned 0;" ::: "memory");
-}
-
-// keep the compiler from touching accumulator or operand registers across
-// an asynchronous wgmma
-template <int N>
-__device__ __forceinline__ void fence_regs(float (&r)[N]) {
-#pragma unroll
-  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i]) :: "memory");
-}
-template <int N>
-__device__ __forceinline__ void fence_regs(uint32_t (&r)[N]) {
-#pragma unroll
-  for (int i = 0; i < N; ++i) asm volatile("" : "+r"(r[i]) :: "memory");
-}
-
-#define WG_D32                                                              \
-  "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),   \
-  "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]),              \
-  "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),          \
-  "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]),         \
-  "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]),         \
-  "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]),         \
-  "+f"(d[31])
-#define WG_R32                                                              \
-  "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, " \
-  "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, "  \
-  "%30, %31}"
-
-// d[64 x 64] (+)= A[64 x 16] . B[16 x 64], A and B K-major in shared memory
-__device__ __forceinline__ void wgmma_ss(float (&d)[32], uint64_t da,
-                                         uint64_t db, int accumulate) {
-  asm volatile(
-      "{\n .reg .pred p;\n setp.ne.b32 p, %34, 0;\n"
-      " wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 " WG_R32
-      ", %32, %33, p, 1, 1, 0, 0;\n}"
-      : WG_D32
-      : "l"(da), "l"(db), "r"(accumulate));
-}
-
-// d[64 x 64] += A[64 x 16] . B[16 x 64], A in registers, B MN-major in
-// shared memory
-__device__ __forceinline__ void wgmma_rs(float (&d)[32], const uint32_t (&a)[4],
-                                         uint64_t db) {
-  asm volatile(
-      "{\n .reg .pred p;\n setp.ne.b32 p, %37, 0;\n"
-      " wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 " WG_R32
-      ", {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}"
-      : WG_D32
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
-}
-
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&v);
-}
+using namespace hopper;
 
 // DVC: 64-column chunks of the value head (dv <= 64 DVC)
 template <int DVC>
@@ -240,7 +117,7 @@ flash_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
       mbar_init(empty0 + 8 * s, kNWG * 128);
     }
     mbar_init(qbar, 1);
-    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+    mbar_fence_init();
   }
   __syncthreads();
 
@@ -306,8 +183,8 @@ flash_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
       wgmma_fence();
       for (int kk = 0; kk < nks; ++kk) {
         const uint32_t off = (kk >> 2) * kBox + (kk & 3) * 32;
-        wgmma_ss(sacc, make_desc(q_base + off, 16, 1024),
-                 make_desc(k_base + off, 16, 1024), kk > 0);
+        Wgmma<64, 0>::ss(sacc, make_desc(q_base + off, 16, 1024),
+                         make_desc(k_base + off, 16, 1024), kk > 0);
       }
       wgmma_commit();
       wgmma_wait_all();
@@ -387,8 +264,9 @@ flash_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
       for (int c = 0; c < DVC; ++c)
 #pragma unroll
         for (int kk = 0; kk < 4; ++kk)
-          wgmma_rs(oacc[c], pa[kk],
-                   make_desc(v_base + c * kBox + kk * 2048, kBox, 1024));
+          Wgmma<64, 1>::rs(oacc[c], pa[kk],
+                           make_desc(v_base + c * kBox + kk * 2048, kBox,
+                                     1024), 1);
       wgmma_commit();
       wgmma_wait_all();
 #pragma unroll
@@ -469,31 +347,6 @@ flash_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
 }
 
 // --- host ----------------------------------------------------------------
-
-typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
-                                void*, const cuuint64_t*, const cuuint64_t*,
-                                const cuuint32_t*, const cuuint32_t*,
-                                CUtensorMapInterleave, CUtensorMapSwizzle,
-                                CUtensorMapL2promotion,
-                                CUtensorMapFloatOOBfill);
-
-EncodeTiled encode_fn() {
-  static EncodeTiled fn = nullptr;
-  if (fn == nullptr) {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult status;
-#if CUDART_VERSION >= 12050
-    cudaError_t e = cudaGetDriverEntryPointByVersion(
-        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &status);
-#else
-    cudaError_t e = cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p,
-                                            cudaEnableDefault, &status);
-#endif
-    if (e == cudaSuccess && status == cudaDriverEntryPointSuccess)
-      fn = reinterpret_cast<EncodeTiled>(p);
-  }
-  return fn;
-}
 
 // a [batch, seq, heads, width] bf16 tensor as a 4-D map, innermost first;
 // a box is 64 columns x 1 head x `rows` rows x 1 batch, 128-byte swizzle

@@ -6,10 +6,23 @@ with x [..., K], W [K, N], A [r, K] and B [N, r].
 
 Port of ``repro.kernels.ops.fused_lora_matmul`` + the Pallas kernel
 ``lora_matmul_pallas`` (``kernels/lora_matmul.py``).  On a CUDA tensor the
-wrapper launches the hand-written Hopper kernel (``csrc/lora_matmul.cu``,
-built by ``build.py`` at first use) or raises; on a CPU tensor it computes
-the plain version ``ref.lora_matmul_ref``.  ``launches`` counts kernel
-launches.  The kernel masks ragged edges itself, so no operand is padded.
+wrapper launches one of two hand-written Hopper kernels (built by
+``build.py`` at first use) or raises; on a CPU tensor it computes the plain
+version ``ref.lora_matmul_ref``.  ``lora_route`` picks the kernel from the
+dtypes and the shapes alone:
+
+* ``"wgmma"`` (``csrc/lora_matmul_wgmma.cu``): bf16 x/W with bf16 A/B on
+  the tensor cores, fed by TMA.  TMA needs every row stride to be a
+  multiple of 16 bytes, so K, N and r must be multiples of 8, and K >= 1;
+* ``"tf32x3"`` (``csrc/lora_matmul.cu``): every other call — f32, the two
+  mixed dtype pairs, and bf16 whose strides TMA refuses — on the tensor
+  cores in 3xTF32 (each f32 operand split into two TF32 values, three
+  products), held to the f32 limit.
+
+A failed launch raises; it is never retried on the other route.
+``launches`` counts kernel launches on both routes, ``launches_by_route``
+each route's.  Both kernels take ragged edges themselves (TMA's zero fill,
+or masked loads), so no operand is padded.
 """
 
 from __future__ import annotations
@@ -22,36 +35,60 @@ from repro_torch.kernels.ref import lora_matmul_ref
 
 #: kernel launches since the last reset (CPU calls never count)
 launches = 0
-#: the kernel keeps ceil(r / 16) ranks of x @ Aᵀ per thread, at most 8
+#: the same, per route
+launches_by_route = {"wgmma": 0, "tf32x3": 0}
+#: widest rank the kernels take (x @ Aᵀ is at most 128 columns of
+#: accumulators)
 MAX_RANK = 128
-#: rows of one block of the kernel; the grid holds at most 65535 row tiles
+#: rows of one block of the 3xTF32 kernel (the tensor-core kernel's are
+#: 128); the grid holds at most 65535 row tiles
 _ROWS_PER_BLOCK = 64
 _DTYPES = (torch.float32, torch.bfloat16)
-_FN = None
+_FN: dict = {}
 
 
 def reset_launches() -> None:
     global launches
     launches = 0
+    for route in launches_by_route:
+        launches_by_route[route] = 0
 
 
-def _kernel_fn():
-    global _FN
-    if _FN is None:
+def lora_route(x_dtype: torch.dtype, a_dtype: torch.dtype, M: int, K: int,
+               N: int, r: int) -> str:
+    """The kernel a CUDA call takes: ``"wgmma"`` for bf16 x/W and A/B whose
+    tensor maps TMA takes (K, N and r multiples of 8, so that the row
+    strides K·2, N·2 and r·2 are multiples of 16 bytes, and K >= 1), else
+    ``"tf32x3"``."""
+    del M   # the row count enters no stride
+    if (x_dtype == torch.bfloat16 and a_dtype == torch.bfloat16 and K >= 1
+            and K % 8 == 0 and N % 8 == 0 and r % 8 == 0):
+        return "wgmma"
+    return "tf32x3"
+
+
+def _kernel_fn(route: str):
+    if route not in _FN:
         from repro_torch.kernels.build import build
-        fn = build("lora_matmul").lora_matmul_launch
-        fn.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 4
-                       + [ctypes.c_float, ctypes.c_int, ctypes.c_int,
-                          ctypes.c_void_p])
+        if route == "wgmma":
+            fn = build("lora_matmul_wgmma").lora_matmul_wgmma_launch
+            fn.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 4
+                           + [ctypes.c_float, ctypes.c_void_p])
+        else:
+            fn = build("lora_matmul").lora_matmul_launch
+            fn.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 4
+                           + [ctypes.c_float, ctypes.c_int, ctypes.c_int,
+                              ctypes.c_void_p])
         fn.restype = ctypes.c_int
-        _FN = fn
-    return _FN
+        _FN[route] = fn
+    return _FN[route]
 
 
 def lora_matmul_cuda(x: torch.Tensor, w: torch.Tensor, a: torch.Tensor,
                      b: torch.Tensor, *, scale: float = 1.0) -> torch.Tensor:
-    """Launch the kernel on 2-D operands: x [M, K], w [K, N], a [r, K],
-    b [N, r] — all on one CUDA device and contiguous."""
+    """Launch the kernel of ``lora_route``'s route on 2-D operands: x
+    [M, K], w [K, N], a [r, K], b [N, r] — all on one CUDA device and
+    contiguous."""
     global launches
     if x.dim() != 2:
         raise ValueError(f"x must be [M, K], got {tuple(x.shape)}")
@@ -79,18 +116,27 @@ def lora_matmul_cuda(x: torch.Tensor, w: torch.Tensor, a: torch.Tensor,
         if t.device.type != "cuda" or t.device != x.device:
             raise ValueError(f"{name} on {t.device}: the kernel needs every "
                              "operand on one CUDA device")
+    route = lora_route(x.dtype, a.dtype, M, K, N, r)
+    if route == "wgmma" and any(t.data_ptr() % 16 for t in (x, w, a, b)):
+        raise ValueError("the tensor-core route reads x, w, a and b with "
+                         "TMA, which needs 16-byte-aligned base addresses")
     y = torch.empty((M, N), dtype=x.dtype, device=x.device)
     if M == 0 or N == 0:
         return y
-    err = _kernel_fn()(
-        x.data_ptr(), w.data_ptr(), a.data_ptr(), b.data_ptr(), y.data_ptr(),
-        M, K, N, r, float(scale), int(x.dtype == torch.bfloat16),
-        int(a.dtype == torch.bfloat16),
-        torch.cuda.current_stream(x.device).cuda_stream)
+    ptrs = (x.data_ptr(), w.data_ptr(), a.data_ptr(), b.data_ptr(),
+            y.data_ptr())
+    stream = torch.cuda.current_stream(x.device).cuda_stream
+    if route == "wgmma":
+        err = _kernel_fn(route)(*ptrs, M, K, N, r, float(scale), stream)
+    else:
+        err = _kernel_fn(route)(*ptrs, M, K, N, r, float(scale),
+                                int(x.dtype == torch.bfloat16),
+                                int(a.dtype == torch.bfloat16), stream)
     if err != 0:
-        raise RuntimeError(f"lora_matmul kernel launch failed: cudaError "
-                           f"{err}")
+        raise RuntimeError(f"lora_matmul kernel launch failed on the "
+                           f"{route} route: cudaError {err}")
     launches += 1
+    launches_by_route[route] += 1
     return y
 
 
@@ -110,5 +156,5 @@ def fused_lora_matmul(x: torch.Tensor, w: torch.Tensor, a: torch.Tensor,
     return y.reshape(*lead, w.shape[1])
 
 
-__all__ = ["MAX_RANK", "fused_lora_matmul", "launches", "lora_matmul_cuda",
-           "reset_launches"]
+__all__ = ["MAX_RANK", "fused_lora_matmul", "launches", "launches_by_route",
+           "lora_matmul_cuda", "lora_route", "reset_launches"]
