@@ -12,14 +12,23 @@ Phases (each raises on failure; the script then exits non-zero):
    flash and LoRA wgmma kernel, HMMA in every bf16 BGMV instance and TF32
    HMMA in every 3xTF32 LoRA instance must be > 0; a probe times
    ``mma.sync`` TF32 products in a register-only loop (the ceiling of the
-   3xTF32 route's instruction);
+   3xTF32 route's instruction); the ``-Xptxas -v`` report gives every
+   ``dim_agg`` instance's registers, and a spill fails the run;
 3. kernels — each kernel against its plain PyTorch version on the card at
    its path's shapes, with the stated tolerances, and timed with CUDA
    events (kernel, plain version, library yardstick) beside the card's
    bound for the same work: the BGMV kernels at the serving shapes (and
    every compiled BGMV instance at small ragged shapes), the
    ``dim_agg`` kernels at the round's leaves on fedbench-100m and at the
-   JAX package's benchmark shape ``K10_L64_r32_n4096``;
+   JAX package's benchmark shape ``K10_L64_r32_n4096`` in both layouts
+   (with whether each ``dim_agg`` output equals its plain version bit for
+   bit), the round's whole tree through ``fedilora_aggregate_tree``,
+   ``fedbuff_aggregate_tree`` and ``fedilora_trimmed_tree`` (one launch
+   each, timed beside one launch per leaf), and every compiled ``dim_agg``
+   route at K from 1 to 32 and 40 and each ``dim_agg_trimmed`` instance
+   (K = 1 .. 32) at small shapes (both layouts, views at an odd element
+   offset, ties, NaN and ±Inf, clients that cover nothing; NaN positions
+   equal);
 4. ops — the ``repro_torch.kernels.ops`` path: ``fused_lora_matmul`` at
    LoRA sites of qwen2-0.5b and fedbench-100m, the JAX package's benchmark
    shapes and a ragged edge, and ``flash_attention`` at qwen2-0.5b's
@@ -36,7 +45,9 @@ Phases (each raises on failure; the script then exits non-zero):
    timed beside the bound (route, TFLOP/s, % of bound, blocks), and every
    compiled instance of both kernels (each rank width, dtype pairing and
    head width, rows with no valid key, bf16 shapes TMA refuses) checked at
-   small shapes on its asserted route;
+   small shapes on its asserted route, and bf16 operands at an odd element
+   offset (qwen2-0.5b's ``wq`` and a causal GQA attention), which the route
+   functions send to ``"tf32x3"`` and ``"simt"``;
 5. serve — qwen2-0.5b at full width in bf16 (random weights from a seed),
    12 tenants of ranks 8/16/32/64 through an 8-slot adapter bank, 48
    requests with chunked prefill and ``lora_backend="grouped"``; every
@@ -54,14 +65,14 @@ Phases (each raises on failure; the script then exits non-zero):
    then ``evaluate_global(n=32)``: losses and BLEU/RSUM finite, one edited
    module per sampled client, one host sync per round after the first (the
    metrics fetch; ``torch.cuda.set_sync_debug_mode``, each sync's source
-   recorded), and ``dim_agg`` launched 4 times a
-   round (2 LoRA sites × A and B); one more round runs under
+   recorded), and ``dim_agg`` launched once a round (one launch over the
+   tree of 2 LoRA sites × A and B); one more round runs under
    ``torch.profiler``;
 8. train agreement — two trainers from one seed, ``fedilora_kernel`` vs
    ``fedilora`` for 3 rounds, then ``fedilora_trimmed_kernel`` vs
    ``fedilora_trimmed`` (trim 0.25) for 2 rounds, each round from one
-   shared starting state: the same cohorts, and global adapters equal
-   within atol 1e-5 + rtol 1e-4.
+   shared starting state: the same cohorts, global adapters equal
+   within atol 1e-5 + rtol 1e-4, and one kernel launch a round.
 
 Each path that runs a kernel (ops: ``lora_matmul`` and ``flash_attention``;
 serve: BGMV; train: ``dim_agg``; the trimmed run: ``dim_agg_trimmed``) is
@@ -111,7 +122,22 @@ WIDTH_BGMV = [(13, 200, 150, 8), (7, 96, 40, 128), (40, 896, 896, 64),
 # package's benchmark shape K10_L64_r32_n4096
 DIM_AGG_SHAPES = [("wq.A", (4, 12, 32, 768), 2), ("wq.B", (4, 12, 768, 32), 3),
                   ("wv.B", (4, 12, 256, 32), 3),
-                  ("K10_L64_r32_n4096", (10, 64, 32, 4096), 2)]
+                  ("K10_L64_r32_n4096", (10, 64, 32, 4096), 2),
+                  ("K10_L64_n4096_r32.B", (10, 64, 4096, 32), 3)]
+# the round's global rank: the tree cases reduce fedbench-100m's four
+# leaves (wq.A, wq.B, wv.A, wv.B) of K = 4 clients in one launch
+ROUND_RANK = 32
+# dim_agg's routes at these K (the trimmed mean at every compiled K), checked
+# and not timed, at (label, (L, P, Q), rank axis, at element offset 1): both
+# layouts on the vector route, Q (A) or r (B) not a multiple of 4, and
+# contiguous views at an odd element offset, on the scalar route
+INSTANCE_KS = (1, 2, 3, 4, 5, 8, 10, 16, 17, 31, 32)
+INSTANCE_SHAPES = [("A", (2, 8, 40), 2, False),
+                   ("A.q37", (2, 8, 37), 2, False),
+                   ("B", (2, 40, 8), 3, False),
+                   ("B.r6", (2, 37, 6), 3, False),
+                   ("A.offset1", (2, 8, 40), 2, True),
+                   ("B.offset1", (2, 40, 8), 3, True)]
 TRAIN_ROUNDS, TRAIN_RANKS = 3, (4, 8, 8, 12, 12, 16, 16, 24, 32, 32)
 SERVE_PROFILE_REQUESTS = 16
 
@@ -158,6 +184,9 @@ WIDTH_FLASH = [("d32", (2, 300, 300, 4, 2, 32, 32), True, 0),
                ("d256.window", (2, 300, 200, 2, 1, 256, 256), True, 100)]
 # bf16 whose strides TMA refuses (d * 2 = 72 bytes): the simt route
 FLASH_SIMT_BF16 = [("d36.tma_refused", (1, 200, 200, 1, 1, 36, 36), True, 0)]
+# bf16 q, k, v at an odd element offset (bases TMA refuses), causal GQA:
+# the simt route; the LoRA case is qwen2-0.5b's wq at an offset
+OFFSET_FLASH = (1, 300, 300, 4, 2, 64, 64)
 # the limits against the plain version, on every route: f32 outputs within
 # 1e-4 (sums over K <= 4096 or Sk <= 4096 in another order, inputs scaled as
 # the reference's kernel tests scale them); a bf16 output is the same f32
@@ -314,21 +343,107 @@ def phase_kernels(dev_name: str) -> dict:
     return {"cases": cases, "widths": widths}
 
 
+def _offset_view(t, offset: int = 1):
+    """t's values in a contiguous view ``offset`` elements into a buffer of
+    its own: a base 16-byte vectors and TMA refuse."""
+    import torch
+    buf = torch.empty(t.numel() + offset, dtype=t.dtype, device=t.device)
+    view = buf[offset:].view(t.shape)
+    view.copy_(t)
+    return view
+
+
+def _hold_agg(what: str, y, ref) -> dict:
+    """An aggregation output against its plain version: NaN where the plain
+    version has NaN, the same infinities, every finite value within atol
+    1e-6 + rtol 1e-5 (f32 sums of K terms in another order: a few ulp of
+    the terms); and whether the two are equal bit for bit."""
+    import torch
+    if y.shape != ref.shape:
+        raise AssertionError(f"{what}: shape {tuple(y.shape)}, plain "
+                             f"{tuple(ref.shape)}")
+    nan = torch.isnan(ref)
+    if not torch.equal(torch.isnan(y), nan):
+        raise AssertionError(f"{what}: NaN at other positions than the "
+                             "plain version's")
+    inf = torch.isinf(ref)
+    if not torch.equal(y[inf], ref[inf]):
+        raise AssertionError(f"{what}: infinities differ")
+    fin = ~(nan | inf)
+    err = (y[fin] - ref[fin]).abs()
+    if not bool((err <= 1e-6 + 1e-5 * ref[fin].abs()).all()):
+        raise AssertionError(f"{what}: max err {err.max().item():.3e} beyond "
+                             "atol 1e-6 + rtol 1e-5")
+    same = bool(torch.equal(y[fin], ref[fin]) and torch.equal(
+        torch.signbit(y[fin]), torch.signbit(ref[fin])))
+    return {"case": what,
+            "max_abs_err": err.max().item() if err.numel() else 0.0,
+            "bit_equal": same}
+
+
+def _dim_agg_bytes(shapes, r: int) -> int:
+    """Bytes a reduction of leaves ``shapes`` ([K, L, P, Q] each) must move:
+    every leaf read once, every output written once, the weights once."""
+    K = shapes[0][0]
+    n = sum(L * P * Q for _, L, P, Q in shapes)
+    return (K + 1) * n * 4 + K * r * 4 + K * 4
+
+
+def _round_tree(gen, K: int, quantized: bool = False):
+    """The fedbench-100m round's stacked tree (K clients, LoRA on its sites
+    at the global rank ``ROUND_RANK``), random from ``gen``: f32 values of
+    adapter scale, or ties of 0.01 steps."""
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.models.transformer import lora_specs
+    tree = {}
+    for sp in lora_specs(get_config("fedbench-100m")):
+        e = {}
+        for m, shape in (("A", (K, sp.num_layers, ROUND_RANK, sp.in_dim)),
+                         ("B", (K, sp.num_layers, sp.out_dim, ROUND_RANK))):
+            if quantized:
+                e[m] = torch.randint(-3, 4, shape, generator=gen,
+                                     device="cuda").float() * 0.01
+            else:
+                e[m] = torch.randn(shape, generator=gen, device="cuda") * 0.05
+        tree[sp.name] = e
+    return tree
+
+
 def phase_dim_agg(dev_name: str) -> dict:
     """``dim_agg`` (without and with the per-client scale) and
     ``dim_agg_trimmed`` against their plain versions at the round's leaf
-    shapes and the benchmark shape.  Bounds: bytes = K + 1 leaves of f32
-    (each input read once, the output written once) plus the small
+    shapes and the benchmark shape in both layouts, then the round's whole
+    tree through the tree functions (one launch each), then every compiled
+    instance at small shapes (not timed).  Bounds: bytes = K + 1 leaves of
+    f32 (each input read once, the output written once) plus the small
     operands; operations = 2K per output element for ``dim_agg``, and for
     the trimmed mean 8K² + 6K per element (each comparison, multiply and
     add of the K × K counting loop and the weighted sum counted as one
-    f32 operation)."""
+    f32 operation, as the reference's kernel does them; the yardstick does
+    not move with the implementation)."""
     import torch
 
+    from repro_torch.core.aggregation import (_client_masks,
+                                              dimension_wise_weights,
+                                              staleness_discount,
+                                              trimmed_dimension_counts)
     from repro_torch.kernels import dim_agg as DK
 
     bw, _, peak_f32 = peaks_for(dev_name)
     gen = torch.Generator(device="cuda").manual_seed(1)
+
+    def trim_operands(K, r):
+        # a client covering fewer dimensions, the trim counts of trim 0.25
+        p = torch.rand(K, generator=gen, device="cuda") + 0.1
+        cover = torch.ones(K, r, device="cuda")
+        cover[0, r // 2:] = 0.0
+        m = cover.sum(0)
+        t = torch.clamp(torch.minimum(torch.floor(0.25 * m),
+                                      torch.floor((m - 1) / 2)), min=0)
+        return p, cover, t
+
     cases = []
     for label, shape, ax in DIM_AGG_SHAPES:
         K, Lx, P, Q = shape
@@ -340,16 +455,10 @@ def phase_dim_agg(dev_name: str) -> dict:
         w = torch.rand(K, r, generator=gen, device="cuda")
         w = w / w.sum(0, keepdim=True)
         s = torch.rand(K, generator=gen, device="cuda")
-        # trimmed operands: duplicate values (ties by client index), a
-        # client covering fewer dimensions, the trim counts of trim 0.25
+        # trimmed operands: duplicate values (ties by client index)
         xq = [torch.randint(-3, 4, shape, generator=gen,
                             device="cuda").float() * 0.01 for _ in xs]
-        p = torch.rand(K, generator=gen, device="cuda") + 0.1
-        cover = torch.ones(K, r, device="cuda")
-        cover[0, r // 2:] = 0.0
-        m = cover.sum(0)
-        t = torch.clamp(torch.minimum(torch.floor(0.25 * m),
-                                      torch.floor((m - 1) / 2)), min=0)
+        p, cover, t = trim_operands(K, r)
         eq = "kd,kldn->ldn" if ax == 2 else "kd,klmd->lmd"
         ws = w * s[:, None]
         variants = [
@@ -369,31 +478,280 @@ def phase_dim_agg(dev_name: str) -> dict:
         for name, variant, kern, plain, lib, inputs, ops_per in variants:
             y = kern(inputs[0])
             torch.cuda.synchronize()
-            ref = plain(inputs[0])
-            err = (y - ref).abs()
-            # f32 sums of K terms in another order: a few ulp of the terms
-            if not bool((err <= 1e-6 + 1e-5 * ref.abs()).all()):
-                raise AssertionError(
-                    f"{name} {label} {variant}: max err {err.max().item():.3e}"
-                    f" beyond atol 1e-6 + rtol 1e-5")
+            held = _hold_agg(f"{name} {label} {variant}", y, plain(inputs[0]))
             ms = cuda_time_ms(kern, [(x,) for x in inputs])
             plain_ms = cuda_time_ms(plain, [(x,) for x in inputs])
             lib_ms = (cuda_time_ms(lib, [(x,) for x in inputs])
                       if lib is not None else None)
-            nbytes = (K + 1) * n_out * 4 + K * r * 4 + K * 4
             cases.append({
                 "kernel": name, "variant": variant, "shape": label,
                 "dims": list(shape), "rank_axis": ax,
-                "max_abs_err": err.max().item(), "ms": ms,
+                "route": (DK.dim_agg_route(Q, True) if name == "dim_agg"
+                          else f"K={K}"),
+                "max_abs_err": held["max_abs_err"],
+                "bit_equal": held["bit_equal"], "ms": ms,
                 "plain_ms": plain_ms, "library_ms": lib_ms,
-                **_bound(nbytes, ops_per * n_out, bw, peak_f32)})
+                **_bound(_dim_agg_bytes([shape], r), ops_per * n_out, bw,
+                         peak_f32)})
             c = cases[-1]
+            c["pct_of_bound"] = 100 * c["bound_ms"] / ms
             lib_s = "n/a" if lib_ms is None else f"{lib_ms:.4f} ms"
             print(f"kernel {name}{'+' + variant if variant else ''} {label}: "
-                  f"err {c['max_abs_err']:.3e} kernel {ms:.4f} ms plain "
-                  f"{plain_ms:.4f} ms einsum {lib_s} bound "
-                  f"{c['bound_ms']:.4f} ms ({c['bound_by']})", flush=True)
-    return {"cases": cases}
+                  f"err {c['max_abs_err']:.3e} bit-equal {c['bit_equal']} "
+                  f"kernel {ms:.4f} ms plain {plain_ms:.4f} ms einsum "
+                  f"{lib_s} bound {c['bound_ms']:.4f} ms ({c['bound_by']}, "
+                  f"{c['pct_of_bound']:.1f} %)", flush=True)
+
+    # the round's whole tree: each tree function once, counted, held
+    # against the plain version leaf by leaf; then one launch over the tree
+    # timed beside the four one-leaf launches and the plain version
+    K, r_g = 4, ROUND_RANK
+    ranks = torch.tensor([4, 8, 16, 32], device="cuda")
+    pw = torch.rand(K, generator=gen, device="cuda") + 0.1
+    pw = pw / pw.sum()
+    stale = torch.tensor([0.0, 1.0, 2.0, 0.0], device="cuda")
+    # enough trees that each call finds its leaves outside the 50 MB L2
+    n_sets = max(2, int(120e6 // _dim_agg_bytes(
+        [tuple(x.shape) for x, _ in DK.tree_leaves(_round_tree(gen, K))],
+        r_g)))
+    trees = [_round_tree(gen, K) for _ in range(n_sets)]
+    qtrees = [_round_tree(gen, K, quantized=True) for _ in range(n_sets)]
+    anchor = {n: {m: e[m][0] for m in ("A", "B")}
+              for n, e in _round_tree(gen, 1).items()}
+    w = dimension_wise_weights(ranks, pw, r_g)
+    disc = staleness_discount(stale, 0.5)
+    cover = _client_masks(ranks, r_g, pw.dtype) * (pw > 0).to(pw.dtype)[:, None]
+    t = trimmed_dimension_counts(cover, 0.25)
+    covered = (w.sum(0) > 0).to(w.dtype)
+    resid = covered * (1.0 - (w * disc[:, None]).sum(0))
+
+    def plain_fedbuff(tree):
+        out = []
+        for (x, ax), (n, m) in zip(DK.tree_leaves(tree), _tree_keys(tree)):
+            y = DK.plain_dim_agg(x, w, disc, rank_axis=ax)
+            rr = resid[None, :, None] if m == "A" else resid[None, None, :]
+            out.append(y + rr * anchor[n][m])
+        return out
+
+    tree_cases = []
+    for name, kernel, fn, plain, ts, leaf_fn, ops_per in [
+            ("fedilora_aggregate_tree", "dim_agg",
+             lambda tr: DK.fedilora_aggregate_tree(tr, ranks, pw),
+             lambda tr: [DK.plain_dim_agg(x, w, rank_axis=ax)
+                         for x, ax in DK.tree_leaves(tr)], trees,
+             lambda lv: DK.dim_agg_tree_cuda(lv, w), 2 * K),
+            ("fedbuff_aggregate_tree", "dim_agg",
+             lambda tr: DK.fedbuff_aggregate_tree(tr, ranks, pw, stale,
+                                                  anchor),
+             plain_fedbuff, trees,
+             lambda lv: DK.dim_agg_tree_cuda(lv, w, disc), 2 * K + 1),
+            ("fedilora_trimmed_tree", "dim_agg_trimmed",
+             lambda tr: DK.fedilora_trimmed_tree(tr, ranks, pw, 0.25),
+             lambda tr: [DK.plain_dim_agg_trimmed(x, pw, cover, t,
+                                                  rank_axis=ax)
+                         for x, ax in DK.tree_leaves(tr)], qtrees,
+             lambda lv: DK.dim_agg_trimmed_tree_cuda(lv, pw, cover, t),
+             8 * K * K + 6 * K)]:
+        DK.reset_launches()
+        out = fn(ts[0])
+        torch.cuda.synchronize()
+        got = dict(DK.launches)
+        want = {"dim_agg": 0, "dim_agg_trimmed": 0, kernel: 1}
+        if got != want:
+            raise AssertionError(f"{name}: launches {got}, expected {want}")
+        if kernel == "dim_agg" and DK.leaves_by_route != {"vector": 4,
+                                                          "scalar": 0}:
+            raise AssertionError(f"{name}: leaves by route "
+                                 f"{DK.leaves_by_route}")
+        held = [_hold_agg(f"{name} {n}.{m}", out[n][m], ref)
+                for (n, m), ref in zip(_tree_keys(ts[0]), plain(ts[0]))]
+        leaves = [DK.tree_leaves(tr) for tr in ts]
+        shapes = [tuple(x.shape) for x, _ in leaves[0]]
+        ms = cuda_time_ms(leaf_fn, [(lv,) for lv in leaves])
+        per_leaf_ms = cuda_time_ms(
+            lambda lv: [leaf_fn([e]) for e in lv], [(lv,) for lv in leaves])
+        fn_ms = cuda_time_ms(fn, [(tr,) for tr in ts])
+        plain_ms = cuda_time_ms(plain, [(tr,) for tr in ts])
+        n_out = sum(L * P * Q for _, L, P, Q in shapes)
+        tree_cases.append({
+            "kernel": kernel, "tree_function": name, "leaves": shapes,
+            "launches": got[kernel],
+            "max_abs_err": max(h["max_abs_err"] for h in held),
+            "bit_equal": all(h["bit_equal"] for h in held),
+            "ms": ms, "per_leaf_ms": per_leaf_ms, "tree_function_ms": fn_ms,
+            "plain_ms": plain_ms, "library_ms": None,
+            **_bound(_dim_agg_bytes(shapes, r_g), ops_per * n_out, bw,
+                     peak_f32)})
+        c = tree_cases[-1]
+        c["pct_of_bound"] = 100 * c["bound_ms"] / ms
+        print(f"kernel {kernel} tree ({name}, {len(shapes)} leaves, 1 "
+              f"launch): err {c['max_abs_err']:.3e} bit-equal "
+              f"{c['bit_equal']} kernel {ms:.4f} ms (one launch per leaf "
+              f"{per_leaf_ms:.4f} ms, the tree function {fn_ms:.4f} ms) "
+              f"plain {plain_ms:.4f} ms bound {c['bound_ms']:.4f} ms "
+              f"({c['bound_by']}, {c['pct_of_bound']:.1f} %)", flush=True)
+    return {"cases": cases, "tree_cases": tree_cases,
+            "instances": dim_agg_instances(gen)}
+
+
+def _tree_keys(tree) -> list:
+    return [(n, m) for n in tree for m in ("A", "B")]
+
+
+def dim_agg_instances(gen) -> list:
+    """Every compiled ``dim_agg`` route and ``dim_agg_trimmed`` instance at
+    small shapes (checked, not timed): ``dim_agg`` at K in ``INSTANCE_KS``
+    and past one stage of 32 staged clients, the trimmed mean at every
+    compiled K (1 .. 32); both layouts, Q a multiple of 4 or not,
+    contiguous views at element offset 1 (the scalar route); trimmed inputs
+    from {-2..2} with NaN, +Inf and -Inf in some clients and a client that
+    covers nothing; a table past ``MAX_LEAVES`` leaves.  Each call's route
+    or instance is asserted from the counts."""
+    import torch
+
+    from repro_torch.kernels import dim_agg as DK
+    from repro_torch.kernels.build import aligned16
+
+    def operands(K, r):
+        w = torch.rand(K, r, generator=gen, device="cuda")
+        s = torch.rand(K, generator=gen, device="cuda") + 0.5
+        p = torch.rand(K, generator=gen, device="cuda") + 0.1
+        cover = (torch.rand(K, r, generator=gen, device="cuda")
+                 < 0.8).float()
+        if K >= 3:
+            cover[1] = 0.0
+        m = cover.sum(0)
+        t = torch.clamp(torch.minimum(torch.floor(0.3 * m),
+                                      torch.floor((m - 1) / 2)), min=0)
+        return w, s, p, cover, t
+
+    def leaf(shape, trimmed):
+        if not trimmed:
+            return torch.randn(shape, generator=gen, device="cuda")
+        x = torch.randint(-2, 3, shape, generator=gen, device="cuda").float()
+        K = shape[0]
+        if K >= 2:
+            x[K - 1, 0, :2, :3] = float("nan")
+            x[0, 1, 1, :4] = float("inf")
+            x[K // 2, 0, 0, -3:] = float("-inf")
+        return x
+
+    out = []
+    for kernel in ("dim_agg", "dim_agg_trimmed"):
+        ks = (INSTANCE_KS + (40,) if kernel == "dim_agg"
+              else range(1, DK.MAX_CLIENTS + 1))
+        for K in ks:
+            for label, dims, ax, offset in INSTANCE_SHAPES:
+                shape = (K,) + dims
+                r = shape[ax]
+                x = leaf(shape, kernel == "dim_agg_trimmed")
+                if offset:
+                    x = _offset_view(x)
+                w, s, p, cover, t = operands(K, r)
+                what = f"{kernel} K={K} {label} {tuple(shape)}"
+                DK.reset_launches()
+                if kernel == "dim_agg":
+                    scale = s if K % 2 else None
+                    route = DK.dim_agg_route(shape[3], aligned16(x))
+                    y = DK.dim_agg_cuda(x, w, scale, rank_axis=ax)
+                    ref = DK.plain_dim_agg(x, w, scale, rank_axis=ax)
+                    took = dict(DK.leaves_by_route)
+                    want = {"vector": 0, "scalar": 0, route: 1}
+                else:
+                    route = f"K={K}"
+                    y = DK.dim_agg_trimmed_cuda(x, p, cover, t, rank_axis=ax)
+                    ref = DK.plain_dim_agg_trimmed(x, p, cover, t,
+                                                   rank_axis=ax)
+                    took = dict(DK.launches_by_clients)
+                    want = {K: 1}
+                if took != want:
+                    raise AssertionError(f"{what}: took {took}, expected "
+                                         f"{want}")
+                if offset and route != "scalar" and kernel == "dim_agg":
+                    raise AssertionError(f"{what}: an offset view took "
+                                         f"{route}")
+                out.append({**_hold_agg(what, y, ref), "route": route,
+                            "nan_outputs": int(torch.isnan(ref).sum())})
+    # a table past MAX_LEAVES leaves: two launches
+    K, r = 4, 8
+    w, s, _, _, _ = operands(K, r)
+    leaves = [(torch.randn(K, 1, r, 12 + i, generator=gen, device="cuda"), 2)
+              for i in range(DK.MAX_LEAVES + 1)]
+    DK.reset_launches()
+    ys = DK.dim_agg_tree_cuda(leaves, w, s)
+    if DK.launches["dim_agg"] != 2:
+        raise AssertionError(f"{len(leaves)} leaves: {DK.launches} launches, "
+                             "expected 2")
+    for i, ((x, ax), y) in enumerate(zip(leaves, ys)):
+        out.append({**_hold_agg(f"dim_agg table of {len(leaves)} leaf {i}",
+                                y, DK.plain_dim_agg(x, w, s, rank_axis=ax)),
+                    "route": DK.dim_agg_route(x.shape[3], True)})
+    n_nan = sum(c.get("nan_outputs", 0) for c in out)
+    print(f"dim_agg instances: {len(out)} cases within their limits (NaN "
+          f"positions equal, {n_nan} NaN outputs), max err "
+          f"{max(c['max_abs_err'] for c in out):.3e}, bit-equal "
+          f"{sum(c['bit_equal'] for c in out)} of {len(out)}", flush=True)
+    return out
+
+
+def ptxas_report(lib: str) -> dict:
+    """Registers, stack and spill bytes of every kernel in library
+    ``lib``'s ``-Xptxas -v`` report (kept beside the library by
+    ``build.py``)."""
+    import re
+
+    from repro_torch.kernels import build as kbuild
+
+    out, fn = {}, None
+    for line in kbuild.BUILD_INFO[lib]["log"].splitlines():
+        m = re.search(r"Compiling entry function '([^']+)'", line)
+        if m:
+            fn = m.group(1)
+            out[fn] = {}
+            continue
+        m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, "
+                      r"(\d+) bytes spill loads", line)
+        if fn and m:
+            out[fn].update(stack=int(m.group(1)), spill_stores=int(m.group(2)),
+                           spill_loads=int(m.group(3)))
+        m = re.search(r"Used (\d+) registers", line)
+        if fn and m:
+            out[fn]["registers"] = int(m.group(1))
+    return out
+
+
+def dim_agg_registers() -> dict:
+    """The ptxas report of every ``dim_agg`` instance (``dim_agg_kernel``
+    and ``dim_agg_trimmed_kernel`` for each K); a spill, or a missing
+    instance, fails the run."""
+    import re
+
+    from repro_torch.kernels.dim_agg import MAX_CLIENTS
+
+    rep = ptxas_report("dim_agg")
+    found = {}
+    for name, v in rep.items():
+        m = re.search(r"dim_agg_trimmed_kernelILi(\d+)E", name)
+        key = (f"trimmed K={m.group(1)}" if m else
+               "dim_agg" if "dim_agg_kernel" in name else None)
+        if key and "registers" in v:
+            found[key] = v
+    want = {"dim_agg"} | {f"trimmed K={k}" for k in range(1, MAX_CLIENTS + 1)}
+    if set(found) != want:
+        raise AssertionError(f"ptxas report of dim_agg: instances "
+                             f"{sorted(found)}, expected {sorted(want)}")
+    spills = {k: v for k, v in found.items()
+              if v.get("spill_stores") or v.get("spill_loads")}
+    if spills:
+        raise AssertionError(f"dim_agg instances spill: {spills}")
+    regs = [found[f"trimmed K={k}"]["registers"]
+            for k in range(1, MAX_CLIENTS + 1)]
+    print(f"ptxas dim_agg: dim_agg_kernel {found['dim_agg']['registers']} "
+          f"registers; dim_agg_trimmed K = 1..{MAX_CLIENTS}: {regs} "
+          f"registers; no spills, no stack "
+          f"({max(v['stack'] for v in found.values())} B at most)",
+          flush=True)
+    return found
 
 
 def _valid_pairs(Sq: int, Sk: int, causal: bool, window: int) -> int:
@@ -485,6 +843,47 @@ def _lora_blocks(route: str, M: int, K: int, N: int, sms: int) -> int:
     return tiles * split
 
 
+def offset_view_cases(gen, scale: float) -> list:
+    """bf16 operands at an odd element offset, whose bases TMA refuses: the
+    route functions send qwen2-0.5b's ``wq`` LoRA projection to
+    ``"tf32x3"`` and a causal GQA attention to ``"simt"``, and each output
+    is held to ``_hold``'s bf16 limit there."""
+    import torch
+
+    from repro_torch.kernels import flash as FA
+    from repro_torch.kernels import lora_matmul as LM
+    from repro_torch.kernels.build import aligned16
+
+    bf16 = torch.bfloat16
+
+    def randn(*shape, mul=1.0):
+        return _offset_view((torch.randn(*shape, generator=gen, device="cuda")
+                             * mul).to(bf16))
+
+    out = []
+    M, K, N, r = next(c[1:] for c in LORA_CASES if c[0] == "qwen2-0.5b.wq")
+    views = [randn(M, K), randn(K, N, mul=0.05), randn(r, K, mul=0.1),
+             randn(N, r, mul=0.1)]
+    route = LM.lora_route(bf16, bf16, M, K, N, r, aligned16(*views))
+    if route != "tf32x3":
+        raise AssertionError(f"offset bf16 LoRA operands: route {route}")
+    out.append(_lora_checked(
+        f"lora_matmul qwen2-0.5b.wq {M}x{K}x{N} r{r} bf16 at element "
+        "offset 1", route, *views, scale))
+    B, Sq, Sk, H, KV, d, dv = OFFSET_FLASH
+    views = [randn(B, Sq, H, d), randn(B, Sk, KV, d), randn(B, Sk, KV, dv)]
+    route = FA.flash_route(bf16, *OFFSET_FLASH, aligned16(*views))
+    if route != "simt":
+        raise AssertionError(f"offset bf16 q, k, v: route {route}")
+    out.append(_flash_checked(
+        f"flash_attention {OFFSET_FLASH} causal bf16 at element offset 1",
+        route, *views, True, 0))
+    print("ops offset views: " + "; ".join(
+        f"{c['case']} on {c['route']}, err {c['max_abs_err']:.3e}"
+        for c in out), flush=True)
+    return out
+
+
 def phase_ops(dev_name: str) -> dict:
     """The ops path: ``ops.fused_lora_matmul`` and ``ops.flash_attention``
     driven once at every case with the launch counts set to 0 just before
@@ -504,6 +903,7 @@ def phase_ops(dev_name: str) -> dict:
     from repro_torch.kernels import flash as FA
     from repro_torch.kernels import lora_matmul as LM
     from repro_torch.kernels import ops
+    from repro_torch.kernels.build import aligned16
     from repro_torch.kernels.ref import lora_matmul_ref
     from repro_torch.models.layers import multihead_attention
 
@@ -559,14 +959,16 @@ def phase_ops(dev_name: str) -> dict:
                 "lora_matmul_by_route": dict(LM.launches_by_route),
                 "flash_attention_by_route": dict(FA.launches_by_route)}
     for c in lora:
-        c["route"] = LM.lora_route(c["dtype"], c["dtype"], *c["dims"])
+        c["route"] = LM.lora_route(c["dtype"], c["dtype"], *c["dims"],
+                                   aligned16(c["x"], *c["sets"][0]))
         if c["route"] != ("wgmma" if c["dtype"] == torch.bfloat16
                           else "tf32x3"):
             raise AssertionError(f"lora {c['name']} {c['dtype']}: route "
                                  f"{c['route']}")
     for c in flash:
         B, Sq, Sk, H, KV, d, dv = c["dims"]
-        c["route"] = FA.flash_route(c["dtype"], B, Sq, Sk, H, KV, d, dv)
+        c["route"] = FA.flash_route(c["dtype"], B, Sq, Sk, H, KV, d, dv,
+                                    aligned16(*c["sets"][0]))
         if c["route"] != ("wgmma" if c["dtype"] == torch.bfloat16
                           else "simt"):
             raise AssertionError(f"flash {c['name']} {c['dtype']}: route "
@@ -708,7 +1110,10 @@ def phase_ops(dev_name: str) -> dict:
     print(f"ops widths: {len(widths)} kernel instances and shapes within "
           f"their limits, max err "
           f"{max(c['max_abs_err'] for c in widths):.3e}", flush=True)
-    return {"launches": launches, "cases": cases, "widths": widths}
+
+    offsets = offset_view_cases(gen, scale)
+    return {"launches": launches, "cases": cases, "widths": widths,
+            "offset_views": offsets}
 
 
 # a register-only loop of independent mma.sync.m16n8k8 TF32 products: the
@@ -1037,11 +1442,11 @@ def phase_train() -> dict:
             raise AssertionError(f"round {rec['round']}: edited "
                                  f"{rec['edited_layers']} for sampled "
                                  f"{rec['sampled']}")
-    want = 4 * TRAIN_ROUNDS
+    want = TRAIN_ROUNDS
     if launches["dim_agg"] != want or launches["dim_agg_trimmed"]:
         raise AssertionError(f"dim_agg launches {launches}, expected "
-                             f"{want} dim_agg (2 sites x A, B x "
-                             f"{TRAIN_ROUNDS} rounds) and no trimmed")
+                             f"{want} dim_agg (one a round over the tree "
+                             "of 2 sites x A, B) and no trimmed")
     if not all(math.isfinite(ev[k]) for k in ("loss", "bleu", "rsum")):
         raise AssertionError(f"evaluate_global: {ev}")
     prof = profile_round(trainer)
@@ -1181,9 +1586,9 @@ def phase_train_agreement() -> dict:
             raise AssertionError(f"{kern} vs {plain}: global adapters differ "
                                  f"beyond atol 1e-5 + rtol 1e-4: {errs}")
         key = "dim_agg_trimmed" if "trimmed" in kern else "dim_agg"
-        if launches[key] != 4 * rounds:
+        if launches[key] != rounds:
             raise AssertionError(f"{kern}: launches {launches}, expected "
-                                 f"{4 * rounds} {key}")
+                                 f"{rounds} {key} (one a round)")
     return out
 
 
@@ -1225,6 +1630,7 @@ def main() -> int:
         return out
 
     sass = timed("sass", sass_counts)
+    regs = timed("ptxas", dim_agg_registers)
     probe = timed("probe", probe_mma_tf32)
     kern = timed("kernels", phase_kernels, dev_name)
     dagg = timed("dim_agg", phase_dim_agg, dev_name)
@@ -1259,15 +1665,19 @@ def main() -> int:
                                        "bank_dtype")}}
     records = [record]
     # headline for both dim_agg kernels: the round's wq.A leaf, unscaled
-    # (the fedilora_kernel path); every case is in build/chip_smoke.json
-    for name, line, launches, lib_call in [
+    # (the fedilora_kernel path), with the round's whole tree in one launch
+    # beside it; every case is in build/chip_smoke.json
+    for name, line, launches, lib_call, tree_fn in [
             ("dim_agg", 115, trained["launches"]["dim_agg"],
-             "torch.einsum('kd,kldn->ldn', w, x)"),
+             "torch.einsum('kd,kldn->ldn', w, x)", "fedilora_aggregate_tree"),
             ("dim_agg_trimmed", 88, train_agree["fedilora_trimmed_kernel"][
-                "launches"]["dim_agg_trimmed"], None)]:
+                "launches"]["dim_agg_trimmed"], None,
+             "fedilora_trimmed_tree")]:
         mine = [c for c in dagg["cases"] if c["kernel"] == name]
         h = next(c for c in mine if c["shape"] == "wq.A"
                  and c["variant"] is None)
+        tree = next(c for c in dagg["tree_cases"]
+                    if c["tree_function"] == tree_fn)
         records.append({
             "name": name, "route": "cuda",
             "source": "src/repro_torch/kernels/csrc/dim_agg.cu",
@@ -1280,7 +1690,11 @@ def main() -> int:
                                         "a trimmed mean",
             "bound_ms": h["bound_ms"], "bound_by": h["bound_by"],
             "shape": {"dims": h["dims"], "rank_axis": h["rank_axis"],
-                      "dtype": "float32"}})
+                      "dtype": "float32"},
+            "tree": {k: tree[k] for k in ("tree_function", "ms",
+                                          "per_leaf_ms", "plain_ms",
+                                          "bound_ms", "max_abs_err",
+                                          "bit_equal")}})
     # headlines for the ops kernels, one per route: qwen2-0.5b's wq LoRA
     # site (bf16 on wgmma, f32 in 3xTF32) and its prefill attention (bf16 on
     # wgmma, f32 on the CUDA cores)
@@ -1322,6 +1736,9 @@ def main() -> int:
                                   for k, v in kbuild.BUILD_INFO.items()},
                    "kernels": records,
                    "kernel_cases": cases, "dim_agg_cases": dagg["cases"],
+                   "dim_agg_tree_cases": dagg["tree_cases"],
+                   "dim_agg_instances": dagg["instances"],
+                   "dim_agg_ptxas": regs,
                    "kernel_widths": kern["widths"], "sass": sass,
                    "probe": probe,
                    "ops": opsr,

@@ -26,8 +26,16 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
 _LOADED: dict[str, ctypes.CDLL] = {}
-#: per library: {"seconds": build time (0.0 when cached), "log": nvcc output}
+#: per library: {"seconds": build time (0.0 when cached), "log": nvcc's
+#: output (the ptxas report), kept beside the library, "path"}
 BUILD_INFO: dict[str, dict] = {}
+
+
+def aligned16(*tensors) -> bool:
+    """Whether every tensor's base address is a multiple of 16 bytes, as TMA
+    and 16-byte vector loads need.  A contiguous view at an odd element
+    offset is not: the route functions take this as a pure input."""
+    return all(t.data_ptr() % 16 == 0 for t in tensors)
 
 
 def build_dir() -> Path:
@@ -80,12 +88,15 @@ def build(name: str) -> ctypes.CDLL:
         if proc.returncode != 0:
             os.unlink(tmp)
             raise RuntimeError(f"nvcc failed for {src}:\n{proc.stdout}")
+        out.with_suffix(".log").write_text(proc.stdout)
         os.replace(tmp, out)
         info["seconds"] = time.perf_counter() - t0
-        info["log"] = proc.stdout
+    log = out.with_suffix(".log")
+    info["log"] = log.read_text() if log.exists() else ""
     _LOADED[name] = lib = ctypes.CDLL(str(out))
     BUILD_INFO[name] = info
     return lib
 
 
-__all__ = ["BUILD_INFO", "build", "build_dir", "nvcc_path", "source_digest"]
+__all__ = ["BUILD_INFO", "aligned16", "build", "build_dir", "nvcc_path",
+           "source_digest"]

@@ -7,15 +7,17 @@ Port of ``repro.kernels.ops.flash_attention`` + the Pallas kernel
 tensor the wrapper launches one of two hand-written Hopper kernels (built by
 ``build.py`` at first use) or raises; on a CPU tensor it computes the plain
 version ``ref.flash_attention_ref``.  ``flash_route`` picks the kernel from
-the dtype and the shapes alone:
+the dtype, the shapes and whether q, k and v have 16-byte-aligned bases
+(``build.aligned16``, read from ``data_ptr()`` by the wrapper):
 
 * ``"wgmma"`` (``csrc/flash_attention_wgmma.cu``): bf16 on the tensor cores,
-  fed by TMA.  TMA needs every global stride to be a multiple of 16 bytes;
-  the kernel's tensor maps are (width, heads, seq, batch), so the head
-  widths d and dv must be multiples of 8.  The probabilities are rounded to
-  bf16 before P·V;
-* ``"simt"`` (``csrc/flash_attention.cu``): f32, and bf16 whose strides TMA
-  refuses (or with no keys), on the CUDA cores.  f32 stays there because
+  fed by TMA.  TMA needs every global stride and base address to be a
+  multiple of 16 bytes; the kernel's tensor maps are (width, heads, seq,
+  batch), so the head widths d and dv must be multiples of 8 and q, k, v
+  aligned.  The probabilities are rounded to bf16 before P·V;
+* ``"simt"`` (``csrc/flash_attention.cu``): f32, and bf16 whose strides or
+  bases TMA refuses (such as a contiguous view at an odd element offset),
+  or with no keys, on the CUDA cores.  f32 stays there because
   TF32 keeps 10 mantissa bits, too few for the f32 limit of 1e-4.
 
 A failed launch raises; it is never retried on the other route.
@@ -37,6 +39,7 @@ import ctypes
 
 import torch
 
+from repro_torch.kernels.build import aligned16
 from repro_torch.kernels.ref import flash_attention_ref
 
 #: kernel launches since the last reset (CPU calls never count)
@@ -59,13 +62,15 @@ def reset_launches() -> None:
 
 
 def flash_route(dtype: torch.dtype, B: int, Sq: int, Sk: int, H: int,
-                KV: int, d: int, dv: int) -> str:
+                KV: int, d: int, dv: int, aligned: bool) -> str:
     """The kernel a CUDA call takes: ``"wgmma"`` for bf16 whose tensor maps
     TMA takes (head widths d and dv multiples of 8, so that the head stride
-    d·2 or dv·2 and every stride above it are multiples of 16 bytes, and
-    at least one key), else ``"simt"``."""
+    d·2 or dv·2 and every stride above it are multiples of 16 bytes, at
+    least one key, and ``aligned``: the bases of q, k and v multiples of
+    16 bytes), else ``"simt"``."""
     del B, Sq, H, KV   # every stride above the head's is a multiple of it
-    if dtype == torch.bfloat16 and d % 8 == 0 and dv % 8 == 0 and Sk >= 1:
+    if (dtype == torch.bfloat16 and d % 8 == 0 and dv % 8 == 0 and Sk >= 1
+            and aligned):
         return "wgmma"
     return "simt"
 
@@ -107,7 +112,7 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                          window: int = 0) -> torch.Tensor:
     """Launch the kernel of ``flash_route``'s route: q [B, Sq, H, d],
     k [B, Sk, KV, d], v [B, Sk, KV, dv], all of one dtype, contiguous and
-    on one CUDA device."""
+    on one CUDA device, at any base address."""
     global launches
     if q.dtype not in _DTYPES or k.dtype != q.dtype or v.dtype != q.dtype:
         raise TypeError(f"q/k/v dtypes {q.dtype}/{k.dtype}/{v.dtype}: need "
@@ -127,10 +132,8 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         if t.device.type != "cuda" or t.device != q.device:
             raise ValueError(f"{name} on {t.device}: the kernel needs every "
                              "operand on one CUDA device")
-    route = flash_route(q.dtype, B, Sq, Sk, H, KV, d, dv)
-    if route == "wgmma" and any(t.data_ptr() % 16 for t in (q, k, v)):
-        raise ValueError("the tensor-core route reads q, k and v with TMA, "
-                         "which needs 16-byte-aligned base addresses")
+    route = flash_route(q.dtype, B, Sq, Sk, H, KV, d, dv,
+                        aligned16(q, k, v))
     o = torch.empty((B, Sq, H, dv), dtype=q.dtype, device=q.device)
     if B == 0 or Sq == 0 or H == 0:
         return o

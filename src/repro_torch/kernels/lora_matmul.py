@@ -9,15 +9,18 @@ Port of ``repro.kernels.ops.fused_lora_matmul`` + the Pallas kernel
 wrapper launches one of two hand-written Hopper kernels (built by
 ``build.py`` at first use) or raises; on a CPU tensor it computes the plain
 version ``ref.lora_matmul_ref``.  ``lora_route`` picks the kernel from the
-dtypes and the shapes alone:
+dtypes, the shapes and whether the operands' bases are 16-byte aligned
+(``build.aligned16``, read from ``data_ptr()`` by the wrapper):
 
 * ``"wgmma"`` (``csrc/lora_matmul_wgmma.cu``): bf16 x/W with bf16 A/B on
-  the tensor cores, fed by TMA.  TMA needs every row stride to be a
-  multiple of 16 bytes, so K, N and r must be multiples of 8, and K >= 1;
+  the tensor cores, fed by TMA.  TMA needs every row stride and base
+  address to be a multiple of 16 bytes, so K, N and r must be multiples
+  of 8, K >= 1, and x, W, A and B aligned;
 * ``"tf32x3"`` (``csrc/lora_matmul.cu``): every other call — f32, the two
-  mixed dtype pairs, and bf16 whose strides TMA refuses — on the tensor
-  cores in 3xTF32 (each f32 operand split into two TF32 values, three
-  products), held to the f32 limit.
+  mixed dtype pairs, and bf16 whose strides or bases TMA refuses (such as
+  a contiguous view at an odd element offset) — on the tensor cores in
+  3xTF32 (each f32 operand split into two TF32 values, three products),
+  held to the f32 limit.
 
 A failed launch raises; it is never retried on the other route.
 ``launches`` counts kernel launches on both routes, ``launches_by_route``
@@ -31,6 +34,7 @@ import ctypes
 
 import torch
 
+from repro_torch.kernels.build import aligned16
 from repro_torch.kernels.ref import lora_matmul_ref
 
 #: kernel launches since the last reset (CPU calls never count)
@@ -55,14 +59,15 @@ def reset_launches() -> None:
 
 
 def lora_route(x_dtype: torch.dtype, a_dtype: torch.dtype, M: int, K: int,
-               N: int, r: int) -> str:
+               N: int, r: int, aligned: bool) -> str:
     """The kernel a CUDA call takes: ``"wgmma"`` for bf16 x/W and A/B whose
     tensor maps TMA takes (K, N and r multiples of 8, so that the row
-    strides K·2, N·2 and r·2 are multiples of 16 bytes, and K >= 1), else
+    strides K·2, N·2 and r·2 are multiples of 16 bytes, K >= 1, and
+    ``aligned``: every operand's base a multiple of 16 bytes), else
     ``"tf32x3"``."""
     del M   # the row count enters no stride
     if (x_dtype == torch.bfloat16 and a_dtype == torch.bfloat16 and K >= 1
-            and K % 8 == 0 and N % 8 == 0 and r % 8 == 0):
+            and K % 8 == 0 and N % 8 == 0 and r % 8 == 0 and aligned):
         return "wgmma"
     return "tf32x3"
 
@@ -88,7 +93,7 @@ def lora_matmul_cuda(x: torch.Tensor, w: torch.Tensor, a: torch.Tensor,
                      b: torch.Tensor, *, scale: float = 1.0) -> torch.Tensor:
     """Launch the kernel of ``lora_route``'s route on 2-D operands: x
     [M, K], w [K, N], a [r, K], b [N, r] — all on one CUDA device and
-    contiguous."""
+    contiguous, at any base address."""
     global launches
     if x.dim() != 2:
         raise ValueError(f"x must be [M, K], got {tuple(x.shape)}")
@@ -116,10 +121,7 @@ def lora_matmul_cuda(x: torch.Tensor, w: torch.Tensor, a: torch.Tensor,
         if t.device.type != "cuda" or t.device != x.device:
             raise ValueError(f"{name} on {t.device}: the kernel needs every "
                              "operand on one CUDA device")
-    route = lora_route(x.dtype, a.dtype, M, K, N, r)
-    if route == "wgmma" and any(t.data_ptr() % 16 for t in (x, w, a, b)):
-        raise ValueError("the tensor-core route reads x, w, a and b with "
-                         "TMA, which needs 16-byte-aligned base addresses")
+    route = lora_route(x.dtype, a.dtype, M, K, N, r, aligned16(x, w, a, b))
     y = torch.empty((M, N), dtype=x.dtype, device=x.device)
     if M == 0 or N == 0:
         return y

@@ -14,8 +14,8 @@ the trainer's persistent stacked client state, all on the device:
 3. HetLoRA self-pruning (``hetlora`` with ``hetlora_prune_gamma > 0``) and
    layer-wise editing against the previous global (paper Eqs. 6-8);
 4. aggregate through ``repro_torch.core.aggregation.AGGREGATORS`` —
-   ``fedilora_kernel`` runs the ``dim_agg`` Hopper kernel, one launch per
-   leaf;
+   ``fedilora_kernel`` runs the ``dim_agg`` Hopper kernel, one launch over
+   the whole stacked tree;
 5. scatter the trained clients back into the stacked state.
 
 Where the reference vmaps the cohort, the port loops over it in Python;

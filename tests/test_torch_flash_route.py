@@ -7,7 +7,12 @@ result (2^-7 of its magnitude), by up to 2^-9 Σ_j p_j |v_j| / l.  The card
 holds the route to ``1e-4 + 2^-7·|plain| + 2^-8·plain(q, k, |v|)``; here
 that bound is held by the route's arithmetic written out in PyTorch
 (online softmax over 64-key tiles in the log2 domain, P rounded to bf16)
-against the JAX package's f32 oracle on the same bf16 inputs."""
+against the JAX package's f32 oracle on the same bf16 inputs.
+
+bf16 q, k, v whose bases are not 16-byte aligned (contiguous views at an
+odd element offset) take the ``"simt"`` route, whose arithmetic (f32
+online softmax, the output rounded to bf16 once) is held against the JAX
+package's ``ops.flash_attention`` in Pallas interpret mode."""
 
 import math
 
@@ -19,8 +24,10 @@ torch.set_num_threads(1)
 
 import jax.numpy as jnp  # noqa: E402
 
+from repro.kernels import ops as jops  # noqa: E402
 from repro.kernels import ref as jref  # noqa: E402
 from repro_torch.configs import ARCHS, get_config  # noqa: E402
+from repro_torch.kernels import build as kbuild  # noqa: E402
 from repro_torch.kernels import flash as FA  # noqa: E402
 from repro_torch.kernels import ops as tops  # noqa: E402
 
@@ -42,9 +49,12 @@ def test_every_config_takes_the_tensor_core_route_in_bf16(arch):
     d, dv = _widths(cfg)
     H, KV = cfg.num_heads, cfg.num_kv_heads
     assert FA.flash_route(torch.bfloat16, 2, 2048, 2048, H, KV, d,
-                          dv) == "wgmma"
+                          dv, True) == "wgmma"
     assert FA.flash_route(torch.float32, 2, 2048, 2048, H, KV, d,
-                          dv) == "simt"
+                          dv, True) == "simt"
+    # a base TMA refuses (a view at an odd element offset)
+    assert FA.flash_route(torch.bfloat16, 2, 2048, 2048, H, KV, d,
+                          dv, False) == "simt"
 
 
 def test_config_widths_are_the_instances_checked_on_the_card():
@@ -60,7 +70,7 @@ def test_config_widths_are_the_instances_checked_on_the_card():
     (1, 64, 0, 2, 1, 64, 64),        # no keys: TMA takes no empty dimension
 ], ids=["d36", "d36_heads", "dv100", "d12", "no_keys"])
 def test_bf16_strides_tma_refuses_take_the_simt_route(dims):
-    assert FA.flash_route(torch.bfloat16, *dims) == "simt"
+    assert FA.flash_route(torch.bfloat16, *dims, True) == "simt"
 
 
 def test_cpu_calls_count_no_launch_on_either_route():
@@ -151,3 +161,81 @@ def test_bf16_probabilities_stay_inside_the_card_limit(dims, causal, window):
     plain = tops.flash_attention(q, k, v, causal=causal,
                                  window=window).float().numpy()
     assert (np.abs(plain - ref) <= ATOL + BF16_RTOL * np.abs(ref)).all()
+
+
+def _offset_view(t, offset):
+    """t's values in a contiguous view ``offset`` elements into a buffer."""
+    buf = torch.zeros(t.numel() + offset, dtype=t.dtype)
+    view = buf[offset:].view(t.shape)
+    view.copy_(t)
+    return view
+
+
+def test_alignment_predicate_sees_a_view_at_an_odd_element_offset():
+    q = torch.ones(1, 64, 2, 64, dtype=torch.bfloat16)
+    assert kbuild.aligned16(q)
+    view = _offset_view(q, 1)
+    assert view.is_contiguous() and torch.equal(view, q)
+    assert not kbuild.aligned16(view)
+    assert not kbuild.aligned16(q, q, view)
+
+
+def _simt_route(q, k, v, *, causal, window, tile=32):
+    """The simt route's arithmetic: f32 scores scaled by 1/sqrt(d), an
+    online softmax (exp, no rounding of P) over 32-key tiles, rows with no
+    valid key averaging every value, the output divided by max(l, 1e-30)
+    and cast to q's dtype once."""
+    B, Sq, H, d = q.shape
+    Sk, KV = k.shape[1], k.shape[2]
+    rep = H // KV
+    qf = q.float().transpose(1, 2)
+    kf = k.float().repeat_interleave(rep, dim=2).transpose(1, 2)
+    vf = v.float().repeat_interleave(rep, dim=2).transpose(1, 2)
+    s = qf @ kf.transpose(-1, -2) * (1.0 / math.sqrt(d))
+    qp = torch.arange(Sq)[:, None]
+    kp = torch.arange(Sk)[None, :]
+    ok = torch.ones(Sq, Sk, dtype=torch.bool)
+    if causal:
+        ok &= qp >= kp
+    if window > 0:
+        ok &= qp - kp < window
+    s = s.masked_fill(~ok, -math.inf)
+    m = torch.full((B, H, Sq, 1), -1e30)
+    l = torch.zeros(B, H, Sq, 1)
+    acc = torch.zeros(B, H, Sq, vf.shape[-1])
+    for k0 in range(0, Sk, tile):
+        st = s[..., k0:k0 + tile]
+        mn = torch.maximum(m, st.amax(-1, keepdim=True))
+        corr = torch.exp(m - mn)
+        p = torch.exp(st - mn)
+        l = l * corr + p.sum(-1, keepdim=True)
+        acc = acc * corr + p @ vf[..., k0:k0 + tile, :]
+        m = mn
+    keyless = l == 0
+    acc = torch.where(keyless, vf.mean(-2, keepdim=True), acc)
+    l = torch.where(keyless, torch.ones_like(l), l)
+    return (acc / l.clamp_min(1e-30)).transpose(1, 2).to(q.dtype)
+
+
+def test_unaligned_bf16_views_take_simt_and_match_pallas():
+    """bf16 q, k, v at element offset 1 (GQA, causal): the wrapper's
+    predicate is False, the route is simt, and that route's arithmetic and
+    the CPU entry agree with the reference's Pallas kernel within
+    ``1e-4 + 2^-7·|plain|``."""
+    B, Sq, Sk, H, KV, d, dv = 1, 128, 128, 4, 2, 64, 64
+    rng = np.random.default_rng(12)
+    arrs = [rng.standard_normal(sh).astype(np.float32)
+            for sh in [(B, Sq, H, d), (B, Sk, KV, d), (B, Sk, KV, dv)]]
+    views = [_offset_view(torch.from_numpy(a).bfloat16(), 1) for a in arrs]
+    assert not kbuild.aligned16(*views)
+    assert FA.flash_route(torch.bfloat16, B, Sq, Sk, H, KV, d, dv,
+                          kbuild.aligned16(*views)) == "simt"
+    pallas = np.asarray(jops.flash_attention(
+        *[jnp.asarray(a, dtype=jnp.bfloat16) for a in arrs], causal=True,
+        bq=64, bk=64, interpret=True), np.float32)
+    lim = ATOL + BF16_RTOL * np.abs(pallas)
+    got = _simt_route(*views, causal=True, window=0)
+    assert got.dtype == torch.bfloat16
+    assert (np.abs(got.float().numpy() - pallas) <= lim).all()
+    cpu = tops.flash_attention(*views, causal=True)
+    assert (np.abs(cpu.float().numpy() - pallas) <= lim).all()

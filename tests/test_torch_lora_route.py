@@ -16,7 +16,12 @@ scales them:
 The card holds both routes to ``1e-4`` (f32) and ``1e-4 + 2^-7·|plain|``
 (bf16); here each route's arithmetic lands within half of that limit,
 while the one-rounding shortcuts (xa rounded to bf16 once, plain TF32) do
-not land within the whole limit."""
+not land within the whole limit.
+
+A bf16 operand whose base is not 16-byte aligned (a contiguous view at an
+odd element offset) is refused by TMA, so ``lora_route`` sends it to
+``"tf32x3"``; that route's arithmetic on such a view is held against the
+JAX package's ``ops.fused_lora_matmul`` in Pallas interpret mode."""
 
 import re
 import shutil
@@ -29,6 +34,7 @@ torch.set_num_threads(1)
 
 import jax.numpy as jnp  # noqa: E402
 
+from repro.kernels import ops as jops  # noqa: E402
 from repro.kernels import ref as jref  # noqa: E402
 from repro_torch.configs import ARCHS, get_config  # noqa: E402
 from repro_torch.kernels import build as kbuild  # noqa: E402
@@ -57,7 +63,7 @@ SCALE = 0.7
 ], ids=["wq", "ragged_m_r24", "smallest", "n150", "k100", "r12", "k0",
         "bf16_x_f32_ab", "f32_x_bf16_ab", "f32"])
 def test_route(dtypes, dims, route):
-    assert LM.lora_route(*dtypes, *dims) == route
+    assert LM.lora_route(*dtypes, *dims, True) == route
 
 
 @pytest.mark.parametrize("arch", ARCHS)
@@ -68,9 +74,9 @@ def test_every_config_lora_site_takes_the_tensor_core_route_in_bf16(arch):
     for s in specs:
         for r in (8, 16, 32, 64):
             assert LM.lora_route(BF16, BF16, 2048, s.in_dim, s.out_dim,
-                                 r) == "wgmma", (s.name, r)
+                                 r, True) == "wgmma", (s.name, r)
             assert LM.lora_route(F32, F32, 2048, s.in_dim, s.out_dim,
-                                 r) == "tf32x3", (s.name, r)
+                                 r, True) == "tf32x3", (s.name, r)
 
 
 def test_cpu_calls_count_no_launch_on_either_route():
@@ -206,3 +212,54 @@ def test_every_local_include_is_a_hashed_header():
         assert local <= headers, (src.name, local)
         if src.stem.endswith("_wgmma"):
             assert "hopper.cuh" in local
+
+
+@pytest.mark.parametrize("dtypes,dims", [
+    ((BF16, BF16), WQ), ((BF16, BF16), (1, 8, 8, 8)), ((F32, F32), WQ),
+    ((BF16, F32), WQ)], ids=["wq", "smallest", "f32", "bf16_x_f32_ab"])
+def test_unaligned_operands_take_the_tf32x3_route(dtypes, dims):
+    assert LM.lora_route(*dtypes, *dims, False) == "tf32x3"
+
+
+def _offset_view(t, offset):
+    """t's values in a contiguous view ``offset`` elements into a buffer."""
+    buf = torch.zeros(t.numel() + offset, dtype=t.dtype)
+    view = buf[offset:].view(t.shape)
+    view.copy_(t)
+    return view
+
+
+@pytest.mark.parametrize("dtype", [BF16, F32])
+def test_alignment_predicate_sees_a_view_at_an_odd_element_offset(dtype):
+    t = torch.ones(64, 32, dtype=dtype)
+    assert kbuild.aligned16(t)
+    view = _offset_view(t, 1)
+    assert view.is_contiguous() and torch.equal(view, t)
+    assert not kbuild.aligned16(view)
+    assert not kbuild.aligned16(t, view)
+    assert kbuild.aligned16(_offset_view(t, 16 // t.element_size()))
+
+
+def test_unaligned_bf16_view_route_arithmetic_matches_pallas():
+    """bf16 operands at element offset 1: the wrapper's predicate is False,
+    the route is tf32x3, and that route's arithmetic (y rounded to bf16
+    once) and the CPU entry agree with the reference's Pallas kernel within
+    the bf16 limit."""
+    rng = np.random.default_rng(16)
+    M, K, N, r = 192, 256, 320, 32
+    arrs = [(rng.standard_normal(sh) * mul).astype(np.float32)
+            for sh, mul in [((M, K), 1.0), ((K, N), 0.05), ((r, K), 0.1),
+                            ((N, r), 0.1)]]
+    views = [_offset_view(torch.from_numpy(a).bfloat16(), 1) for a in arrs]
+    assert not kbuild.aligned16(*views)
+    assert LM.lora_route(BF16, BF16, M, K, N, r,
+                         kbuild.aligned16(*views)) == "tf32x3"
+    pallas = np.asarray(jops.fused_lora_matmul(
+        *[jnp.asarray(a, dtype=jnp.bfloat16) for a in arrs], scale=SCALE,
+        bm=64, bn=64, bk=128, interpret=True), np.float32)
+    lim = F32_ATOL + BF16_RTOL * np.abs(pallas)
+    got = _tf32x3_route(*(v.float() for v in views)).bfloat16()
+    assert (np.abs(got.float().numpy() - pallas) <= lim).all()
+    cpu = tops.fused_lora_matmul(*views, scale=SCALE)
+    assert cpu.dtype == BF16
+    assert (np.abs(cpu.float().numpy() - pallas) <= lim).all()
