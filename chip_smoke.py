@@ -10,10 +10,12 @@ Phases (each raises on failure; the script then exits non-zero):
    checkout, one ``nvcc`` per source, all started together; then
    ``cuobjdump -sass`` counts the tensor-core instructions: HGMMA in every
    flash and LoRA wgmma kernel, HMMA in every bf16 BGMV instance and TF32
-   HMMA in every 3xTF32 LoRA instance must be > 0; a probe times
+   HMMA in every 3xTF32 LoRA and flash instance must be > 0; a probe times
    ``mma.sync`` TF32 products in a register-only loop (the ceiling of the
    3xTF32 route's instruction); the ``-Xptxas -v`` report gives every
-   ``dim_agg`` instance's registers, and a spill fails the run;
+   ``dim_agg`` instance's registers, and a spill fails the run; the same
+   report gives every 3xTF32 flash instance's registers and spills, and a
+   spill at a value width up to 128 fails the run;
 3. kernels — each kernel against its plain PyTorch version on the card at
    its path's shapes, with the stated tolerances, and timed with CUDA
    events (kernel, plain version, library yardstick) beside the card's
@@ -33,11 +35,12 @@ Phases (each raises on failure; the script then exits non-zero):
    LoRA sites of qwen2-0.5b and fedbench-100m, the JAX package's benchmark
    shapes and a ragged edge, and ``flash_attention`` at qwen2-0.5b's
    prefill, a gemma3-12b sliding-window layer and a non-causal ragged
-   length (each in f32 and bf16) and the benchmark shape ``B4_S2048_d64``
-   (bf16); each once through ``ops`` with the launch counts set to 0 just
-   before and read just after (one launch a case; every bf16 case on the
-   ``wgmma`` route of its kernel, every f32 LoRA case on ``tf32x3`` and
-   every f32 flash case on ``simt``), then each output against its plain
+   length (each in f32 and bf16), the benchmark shape ``B4_S2048_d64``
+   (bf16) and the prefill in bf16 at an odd element offset; each once
+   through ``ops`` with the launch counts set to 0 just before and read
+   just after (one launch a case; every aligned bf16 case on the ``wgmma``
+   route of its kernel, every f32 case and the offset bf16 case on
+   ``tf32x3``), then each output against its plain
    version (f32 within 1e-4; bf16 within one rounding step more, and on
    the tensor-core flash route 2^-8 · plain(q, k, |v|) more for the
    probabilities rounded to bf16), the f32 prefill against
@@ -47,7 +50,7 @@ Phases (each raises on failure; the script then exits non-zero):
    head width, rows with no valid key, bf16 shapes TMA refuses) checked at
    small shapes on its asserted route, and bf16 operands at an odd element
    offset (qwen2-0.5b's ``wq`` and a causal GQA attention), which the route
-   functions send to ``"tf32x3"`` and ``"simt"``;
+   functions send to ``"tf32x3"``;
 5. serve — qwen2-0.5b at full width in bf16 (random weights from a seed),
    12 tenants of ranks 8/16/32/64 through an 8-slot adapter bank, 48
    requests with chunked prefill and ``lora_backend="grouped"``; every
@@ -160,13 +163,17 @@ FLASH_CASES = [("qwen2-0.5b.prefill", (2, 2048, 2048, 14, 2, 64, 64), True, 0,
                 ("bfloat16",)),
                ("noncausal_ragged", (1, 1000, 1000, 14, 2, 64, 64), False, 0,
                 ("bfloat16", "float32"))]
+# the prefill in bf16 with q, k and v at element offset 1, bases TMA
+# refuses: what a misaligned caller runs, on the tf32x3 route
+FLASH_OFFSET_CASES = [("qwen2-0.5b.prefill.offset1",
+                       (2, 2048, 2048, 14, 2, 64, 64), True, 0)]
 # every compiled instance of the two kernels at a small ragged shape (checked,
 # not timed): the LoRA kernels at r = 8, 24, 40, 128, every instance of the
 # tf32x3 route (r <= 32, 64, 128) and the wgmma route's R = 8, 32, 64, 128
 # (R = 16 runs in the ops cases at r = 16): N = 150 at each pairing of x/W
 # and A/B types takes tf32x3 (bf16 too, whose row stride of 300 bytes TMA
 # refuses), N = 152 in bf16 takes wgmma with ragged M and K and ranks past
-# r zero-filled; flash in f32 (the simt
+# r zero-filled; flash in f32 (the tf32x3
 # route) and bf16 (the wgmma route) at value widths of each instance of both
 # (dv <= 32, 64, 128, 192, 256), d = 72 (padded to 80 in shared memory), MLA's
 # d 192 with dv 128, Sq != Sk, a window without the causal mask, and rows
@@ -182,10 +189,11 @@ WIDTH_FLASH = [("d32", (2, 300, 300, 4, 2, 32, 32), True, 0),
                ("d64_dv192.noncausal", (1, 130, 140, 4, 2, 64, 192), False,
                 0),
                ("d256.window", (2, 300, 200, 2, 1, 256, 256), True, 100)]
-# bf16 whose strides TMA refuses (d * 2 = 72 bytes): the simt route
-FLASH_SIMT_BF16 = [("d36.tma_refused", (1, 200, 200, 1, 1, 36, 36), True, 0)]
+# bf16 whose strides TMA refuses (d * 2 = 72 bytes): the tf32x3 route
+FLASH_TF32X3_BF16 = [("d36.tma_refused", (1, 200, 200, 1, 1, 36, 36), True,
+                      0)]
 # bf16 q, k, v at an odd element offset (bases TMA refuses), causal GQA:
-# the simt route; the LoRA case is qwen2-0.5b's wq at an offset
+# the tf32x3 route; the LoRA case is qwen2-0.5b's wq at an offset
 OFFSET_FLASH = (1, 300, 300, 4, 2, 64, 64)
 # the limits against the plain version, on every route: f32 outputs within
 # 1e-4 (sums over K <= 4096 or Sk <= 4096 in another order, inputs scaled as
@@ -754,6 +762,37 @@ def dim_agg_registers() -> dict:
     return found
 
 
+def flash_registers() -> dict:
+    """The ptxas report of every 3xTF32 flash instance
+    (``flash_tf32x3_kernel`` per type and value-width bucket); a missing
+    instance, or a spill at a value width up to 128, fails the run."""
+    import re
+
+    rep = ptxas_report("flash_attention")
+    found = {}
+    for name, v in rep.items():
+        m = re.search(r"flash_tf32x3_kernelI(f|13__nv_bfloat16)Li(\d+)E",
+                      name)
+        if m and "registers" in v:
+            dt = "f32" if m.group(1) == "f" else "bf16"
+            found[f"{dt} dv<={8 * int(m.group(2))}"] = v
+    want = {f"{dt} dv<={w}" for dt in ("f32", "bf16")
+            for w in (32, 64, 128, 256)}
+    if set(found) != want:
+        raise AssertionError(f"ptxas report of flash_attention: instances "
+                             f"{sorted(found)}, expected {sorted(want)}")
+    spills = {k: v for k, v in found.items()
+              if (v.get("spill_stores") or v.get("spill_loads"))
+              and not k.endswith("<=256")}
+    if spills:
+        raise AssertionError(f"flash instances spill at dv <= 128: {spills}")
+    print("ptxas flash_attention: " + "; ".join(
+        f"{k} {v['registers']} registers, spills {v.get('spill_stores', 0)}"
+        f"/{v.get('spill_loads', 0)} B, stack {v.get('stack', 0)} B"
+        for k, v in sorted(found.items())), flush=True)
+    return found
+
+
 def _valid_pairs(Sq: int, Sk: int, causal: bool, window: int) -> int:
     """(query, key) pairs the mask lets through, positions from 0."""
     import numpy as np
@@ -845,9 +884,9 @@ def _lora_blocks(route: str, M: int, K: int, N: int, sms: int) -> int:
 
 def offset_view_cases(gen, scale: float) -> list:
     """bf16 operands at an odd element offset, whose bases TMA refuses: the
-    route functions send qwen2-0.5b's ``wq`` LoRA projection to
-    ``"tf32x3"`` and a causal GQA attention to ``"simt"``, and each output
-    is held to ``_hold``'s bf16 limit there."""
+    route functions send qwen2-0.5b's ``wq`` LoRA projection and a causal
+    GQA attention to ``"tf32x3"``, and each output is held to ``_hold``'s
+    bf16 limit there."""
     import torch
 
     from repro_torch.kernels import flash as FA
@@ -873,7 +912,7 @@ def offset_view_cases(gen, scale: float) -> list:
     B, Sq, Sk, H, KV, d, dv = OFFSET_FLASH
     views = [randn(B, Sq, H, d), randn(B, Sk, KV, d), randn(B, Sk, KV, dv)]
     route = FA.flash_route(bf16, *OFFSET_FLASH, aligned16(*views))
-    if route != "simt":
+    if route != "tf32x3":
         raise AssertionError(f"offset bf16 q, k, v: route {route}")
     out.append(_flash_checked(
         f"flash_attention {OFFSET_FLASH} causal bf16 at element offset 1",
@@ -934,16 +973,23 @@ def phase_ops(dev_name: str) -> dict:
                     for _ in range(n_sets)]
             lora.append({"name": name, "dims": (M, K, N, r), "dtype": dt,
                          "x": randn(M, K, dtype=dt), "sets": sets})
-    for name, dims, causal, window, dts in FLASH_CASES:
+    flash_cases = ([(name, dims, causal, window, getattr(torch, dtn), 0)
+                    for name, dims, causal, window, dts in FLASH_CASES
+                    for dtn in dts]
+                   + [(name, dims, causal, window, torch.bfloat16, 1)
+                      for name, dims, causal, window in FLASH_OFFSET_CASES])
+    for name, dims, causal, window, dt, offset in flash_cases:
         B, Sq, Sk, H, KV, d, dv = dims
-        for dtn in dts:
-            dt = getattr(torch, dtn)
-            size = torch.finfo(dt).bits // 8
-            per_set = B * (Sq * H * d + Sk * KV * (d + dv)) * size
-            n_sets = max(2, int(120e6 // per_set))
-            flash.append({"name": name, "dims": dims, "causal": causal,
-                          "window": window, "dtype": dt,
-                          "sets": [qkv(*dims, dt) for _ in range(n_sets)]})
+        size = torch.finfo(dt).bits // 8
+        per_set = B * (Sq * H * d + Sk * KV * (d + dv)) * size
+        n_sets = max(2, int(120e6 // per_set))
+        sets = [qkv(*dims, dt) for _ in range(n_sets)]
+        if offset:
+            sets = [tuple(_offset_view(t, offset) for t in st)
+                    for st in sets]
+        flash.append({"name": name, "dims": dims, "causal": causal,
+                      "window": window, "dtype": dt, "offset": offset,
+                      "sets": sets})
     torch.cuda.synchronize()
 
     # the path: each entry point once per case, counted
@@ -970,16 +1016,17 @@ def phase_ops(dev_name: str) -> dict:
         c["route"] = FA.flash_route(c["dtype"], B, Sq, Sk, H, KV, d, dv,
                                     aligned16(*c["sets"][0]))
         if c["route"] != ("wgmma" if c["dtype"] == torch.bfloat16
-                          else "simt"):
+                          and not c["offset"] else "tf32x3"):
             raise AssertionError(f"flash {c['name']} {c['dtype']}: route "
                                  f"{c['route']}")
-    n_bf16 = sum(c["dtype"] == torch.bfloat16 for c in flash)
+    n_wgmma = sum(c["dtype"] == torch.bfloat16 and not c["offset"]
+                  for c in flash)
     n_lora_bf16 = sum(c["dtype"] == torch.bfloat16 for c in lora)
     want = {"lora_matmul": len(lora), "flash_attention": len(flash),
             "lora_matmul_by_route": {"wgmma": n_lora_bf16,
                                      "tf32x3": len(lora) - n_lora_bf16},
-            "flash_attention_by_route": {"wgmma": n_bf16,
-                                         "simt": len(flash) - n_bf16}}
+            "flash_attention_by_route": {"wgmma": n_wgmma,
+                                         "tf32x3": len(flash) - n_wgmma}}
     if launches != want:
         raise AssertionError(f"ops path launches {launches}, expected "
                              f"{want}")
@@ -1063,6 +1110,7 @@ def phase_ops(dev_name: str) -> dict:
             "dims": {"B": B, "Sq": Sq, "Sk": Sk, "H": H, "KV": KV, "d": d,
                      "dv": dv}, "causal": causal, "window": window,
             "dtype": str(dt).split(".")[-1], "route": c["route"],
+            "element_offset": c["offset"],
             "tflops": 2 * pairs * (d + dv) / ms / 1e9,
             "max_abs_err": err, "model_max_abs_err": model_err,
             "ms": ms, "plain_ms": plain_ms, "library_ms": lib_ms,
@@ -1099,13 +1147,14 @@ def phase_ops(dev_name: str) -> dict:
             *lora_operands(M, K, N, r, torch.bfloat16, torch.bfloat16),
             scale))
     for name, dims, causal, window in WIDTH_FLASH:
-        for dt, route in ((torch.float32, "simt"), (torch.bfloat16, "wgmma")):
+        for dt, route in ((torch.float32, "tf32x3"),
+                          (torch.bfloat16, "wgmma")):
             widths.append(_flash_checked(f"flash_attention {name} {dims} {dt}",
                                          route, *qkv(*dims, dt), causal,
                                          window))
-    for name, dims, causal, window in FLASH_SIMT_BF16:
+    for name, dims, causal, window in FLASH_TF32X3_BF16:
         widths.append(_flash_checked(
-            f"flash_attention {name} {dims} bf16", "simt",
+            f"flash_attention {name} {dims} bf16", "tf32x3",
             *qkv(*dims, torch.bfloat16), causal, window))
     print(f"ops widths: {len(widths)} kernel instances and shapes within "
           f"their limits, max err "
@@ -1190,8 +1239,8 @@ def probe_mma_tf32() -> dict:
 def sass_counts() -> dict:
     """Tensor-core instructions in the built libraries (``cuobjdump
     -sass``): HGMMA in each flash and LoRA wgmma kernel, HMMA in each bf16
-    BGMV instance, TF32 HMMA in each 3xTF32 LoRA instance.  Raises if a
-    total is 0, or any such kernel has none."""
+    BGMV instance, TF32 HMMA in each 3xTF32 LoRA and flash instance.
+    Raises if a total is 0, or any such kernel has none."""
     import re
 
     from repro_torch.kernels import build as kbuild
@@ -1206,6 +1255,8 @@ def sass_counts() -> dict:
             ("grouped_lora_matmul", "base_expand_kernelI13__nv_bfloat16",
              "HMMA", r"\bHMMA\."),
             ("lora_matmul", "lora_tf32x3_kernel", "HMMA.TF32",
+             r"\bHMMA\.\S*TF32"),
+            ("flash_attention", "flash_tf32x3_kernel", "HMMA.TF32",
              r"\bHMMA\.\S*TF32")]:
         sass = subprocess.run([tool, "-sass", kbuild.BUILD_INFO[lib]["path"]],
                               capture_output=True, text=True,
@@ -1631,6 +1682,7 @@ def main() -> int:
 
     sass = timed("sass", sass_counts)
     regs = timed("ptxas", dim_agg_registers)
+    flash_regs = timed("ptxas_flash", flash_registers)
     probe = timed("probe", probe_mma_tf32)
     kern = timed("kernels", phase_kernels, dev_name)
     dagg = timed("dim_agg", phase_dim_agg, dev_name)
@@ -1696,21 +1748,23 @@ def main() -> int:
                                           "bound_ms", "max_abs_err",
                                           "bit_equal")}})
     # headlines for the ops kernels, one per route: qwen2-0.5b's wq LoRA
-    # site (bf16 on wgmma, f32 in 3xTF32) and its prefill attention (bf16 on
-    # wgmma, f32 on the CUDA cores)
+    # site and its prefill attention, bf16 on wgmma and f32 in 3xTF32 (the
+    # errors over every ops case of the route)
     by_route = opsr["launches"]["flash_attention_by_route"]
     lora_by_route = opsr["launches"]["lora_matmul_by_route"]
-    for name, kernel, source, line, dtype, launches in [
+    for name, kernel, source, line, route, dtype in [
             ("lora_matmul", "lora_matmul", "lora_matmul_wgmma", 54,
-             "bfloat16", lora_by_route["wgmma"]),
+             "wgmma", "bfloat16"),
             ("lora_matmul_tf32x3", "lora_matmul", "lora_matmul", 54,
-             "float32", lora_by_route["tf32x3"]),
+             "tf32x3", "float32"),
             ("flash_attention", "flash_attention", "flash_attention_wgmma",
-             76, "bfloat16", by_route["wgmma"]),
-            ("flash_attention_simt", "flash_attention", "flash_attention",
-             76, "float32", by_route["simt"])]:
+             76, "wgmma", "bfloat16"),
+            ("flash_attention_tf32x3", "flash_attention", "flash_attention",
+             76, "tf32x3", "float32")]:
+        launches = (lora_by_route if kernel == "lora_matmul"
+                    else by_route)[route]
         mine = [c for c in opsr["cases"] if c["kernel"] == kernel
-                and c["dtype"] == dtype]
+                and c["route"] == route]
         head_shape = ("qwen2-0.5b.wq" if kernel == "lora_matmul"
                       else "qwen2-0.5b.prefill")
         h = next(c for c in mine if c["shape"] == head_shape
@@ -1738,7 +1792,7 @@ def main() -> int:
                    "kernel_cases": cases, "dim_agg_cases": dagg["cases"],
                    "dim_agg_tree_cases": dagg["tree_cases"],
                    "dim_agg_instances": dagg["instances"],
-                   "dim_agg_ptxas": regs,
+                   "dim_agg_ptxas": regs, "flash_ptxas": flash_regs,
                    "kernel_widths": kern["widths"], "sass": sass,
                    "probe": probe,
                    "ops": opsr,

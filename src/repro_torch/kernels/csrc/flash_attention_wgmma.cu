@@ -1,7 +1,7 @@
 // Flash attention (forward) in bf16 for Hopper, sm_90a, on the tensor cores:
 // TMA loads, an mbarrier ring and wgmma.  The "wgmma" route of
 // repro_torch.kernels.flash (flash_route); f32, and bf16 shapes whose strides
-// TMA refuses, take the CUDA-core kernel in flash_attention.cu.
+// TMA refuses, take the 3xTF32 kernel in flash_attention.cu.
 //
 // Replaces the TPU kernel flash_attention_pallas
 // (src/repro/kernels/flash_attention.py) for bf16, with every semantic of

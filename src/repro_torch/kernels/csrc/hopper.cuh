@@ -1,7 +1,10 @@
-// Hopper (sm_90a) building blocks shared by the port's tensor-core kernels
-// (flash_attention_wgmma.cu, lora_matmul_wgmma.cu): shared-memory
-// mbarriers, TMA tile loads, wgmma descriptors, fences and instructions, and
-// the host-side encoding of TMA tensor maps.
+// Hopper (sm_90a) building blocks shared by the port's tensor-core kernels:
+// shared-memory mbarriers, TMA tile loads, wgmma descriptors, fences and
+// instructions, and the host-side encoding of TMA tensor maps
+// (flash_attention_wgmma.cu, lora_matmul_wgmma.cu); the 3xTF32 arithmetic on
+// mma.sync (the split of an f32 value into two TF32 values and the m16n8k8
+// TF32 product) and the cp.async copies (flash_attention.cu,
+// lora_matmul.cu).
 //
 // The tensor maps are encoded by cuTensorMapEncodeTiled, which lives in
 // libcuda rather than the CUDA runtime; it is fetched at run time
@@ -22,6 +25,90 @@ namespace hopper {
 
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ float to_f32(float v) { return v; }
+__device__ __forceinline__ float to_f32(__nv_bfloat16 v) {
+  return __bfloat162float(v);
+}
+
+template <typename T>
+__device__ __forceinline__ T from_f32(float v);
+template <>
+__device__ __forceinline__ float from_f32<float>(float v) { return v; }
+template <>
+__device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float v) {
+  return __float2bfloat16(v);
+}
+
+// --- cp.async ------------------------------------------------------------
+
+__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;"
+               :: "r"(smem_u32(dst)), "l"(src) : "memory");
+}
+__device__ __forceinline__ void cp_async4(void* dst, const void* src) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;"
+               :: "r"(smem_u32(dst)), "l"(src) : "memory");
+}
+__device__ __forceinline__ void cp_commit() {
+  asm volatile("cp.async.commit_group;" ::: "memory");
+}
+// wait until at most N committed groups are still in flight
+template <int N>
+__device__ __forceinline__ void cp_wait() {
+  asm volatile("cp.async.wait_group %0;" :: "n"(N) : "memory");
+}
+
+// --- 3xTF32 on mma.sync --------------------------------------------------
+
+// v rounded to TF32, ties away from zero: what cvt.rna.tf32.f32 gives for
+// finite v, in two integer operations (sm_90 has no one instruction for the
+// cvt, which compiles to several)
+__device__ __forceinline__ uint32_t tf32_rna(float v) {
+  return (__float_as_uint(v) + 0x1000u) & 0xFFFFE000u;
+}
+
+// v as big + small TF32 values: big = tf32(v), small = v - big (exact in
+// f32), of which the tensor core reads the TF32 part (it drops the low 13
+// bits); with SPLIT false (a bf16 value, already a TF32 value) small is 0
+// and never read
+template <bool SPLIT>
+__device__ __forceinline__ void split(float v, uint32_t& big,
+                                      uint32_t& small) {
+  if constexpr (SPLIT) {
+    big = tf32_rna(v);
+    small = __float_as_uint(v - __uint_as_float(big));
+  } else {
+    big = __float_as_uint(v);
+    small = 0u;
+  }
+}
+
+// c[16 x 8] += a[16 x 8] . b[8 x 8] in TF32 with f32 sums.  a[0..3]: rows
+// lane / 4 and + 8, columns lane % 4 and + 4 as (g, t), (g + 8, t), (g, t +
+// 4), (g + 8, t + 4); b[0..1]: rows lane % 4 and + 4 of column lane / 4; c:
+// (g, 2t), (g, 2t + 1), (g + 8, 2t), (g + 8, 2t + 1).  The tensor core
+// rounds its f32 sum toward zero, always the same way: a caller keeps no
+// running sum in it for long.  (Not volatile: the compiler may interleave
+// independent products.)
+__device__ __forceinline__ void mma_tf32(float (&c)[4], const uint32_t (&a)[4],
+                                         uint32_t b0, uint32_t b1) {
+  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 {%0, %1, %2, %3}, "
+      "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// c = a . b (a sum started from zero)
+__device__ __forceinline__ void mma_tf32_z(float (&c)[4],
+                                           const uint32_t (&a)[4],
+                                           uint32_t b0, uint32_t b1) {
+  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 {%0, %1, %2, %3}, "
+      "{%4, %5, %6, %7}, {%8, %9}, {%10, %10, %10, %10};"
+      : "=f"(c[0]), "=f"(c[1]), "=f"(c[2]), "=f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1),
+        "f"(0.f));
 }
 
 // --- mbarriers -----------------------------------------------------------

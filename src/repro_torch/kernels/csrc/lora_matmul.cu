@@ -68,14 +68,19 @@
 // the TF32 peak / 3).  mma.sync reaches less of the TF32 peak than wgmma
 // (chip_smoke.py's probe measures its rate in a register-only loop), and
 // wgmma.tf32 would need W in K-major order (W is N-major).
+//
+// The split, the mma.sync TF32 product and the cp.async copies are
+// hopper.cuh's, shared with flash_attention.cu.
 
 #include <cooperative_groups.h>
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
 #include <stddef.h>
 #include <stdint.h>
 
+#include "hopper.cuh"
+
 namespace {
+
+using namespace hopper;
 
 constexpr int kMI = 4;          // m16 tiles of a warp: 16 kMI rows
 constexpr int BM = 16 * kMI;    // rows of y per block
@@ -101,65 +106,6 @@ __host__ __device__ constexpr size_t stage_bytes() {
   return (size_t)BM * ka_stride<TX>() * sizeof(TX)
          + (size_t)BK * kWStride * sizeof(TX)
          + (size_t)32 * NTA * ka_stride<TA>() * sizeof(TA);
-}
-
-__device__ __forceinline__ float to_f32(float v) { return v; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 v) { return __bfloat162float(v); }
-
-template <typename T>
-__device__ __forceinline__ T from_f32(float v);
-template <>
-__device__ __forceinline__ float from_f32<float>(float v) { return v; }
-template <>
-__device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float v) {
-  return __float2bfloat16(v);
-}
-
-// v rounded to TF32, ties away from zero: what cvt.rna.tf32.f32 gives for
-// finite v, in two integer operations (sm_90 has no one instruction for the
-// cvt, which compiles to several)
-__device__ __forceinline__ uint32_t tf32_rna(float v) {
-  return (__float_as_uint(v) + 0x1000u) & 0xFFFFE000u;
-}
-
-// v as big + small TF32 values: big = tf32(v), small = v - big (exact in
-// f32), of which the tensor core reads the TF32 part (it drops the low 13
-// bits); with SPLIT false (a bf16 value, already a TF32 value) small is 0
-// and never read
-template <bool SPLIT>
-__device__ __forceinline__ void split(float v, uint32_t& big,
-                                      uint32_t& small) {
-  if constexpr (SPLIT) {
-    big = tf32_rna(v);
-    small = __float_as_uint(v - __uint_as_float(big));
-  } else {
-    big = __float_as_uint(v);
-    small = 0u;
-  }
-}
-
-// c[16 x 8] += a[16 x 8] . b[8 x 8] in TF32 with f32 sums.  a[0..3]: rows
-// lane / 4 and + 8, columns lane % 4 and + 4 as (g, t), (g + 8, t), (g, t +
-// 4), (g + 8, t + 4); b[0..1]: rows lane % 4 and + 4 of column lane / 4; c:
-// (g, 2t), (g, 2t + 1), (g + 8, 2t), (g + 8, 2t + 1)
-// (not volatile: the compiler may interleave independent products)
-__device__ __forceinline__ void mma_tf32(float (&c)[4], const uint32_t (&a)[4],
-                                         uint32_t b0, uint32_t b1) {
-  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 {%0, %1, %2, %3}, "
-      "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-// c = a . b (a sum started from zero)
-__device__ __forceinline__ void mma_tf32_z(float (&c)[4],
-                                           const uint32_t (&a)[4],
-                                           uint32_t b0, uint32_t b1) {
-  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 {%0, %1, %2, %3}, "
-      "{%4, %5, %6, %7}, {%8, %9}, {%10, %10, %10, %10};"
-      : "=f"(c[0]), "=f"(c[1]), "=f"(c[2]), "=f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1),
-        "f"(0.f));
 }
 
 // c[i] += a[i] . b for the kMI m16 tiles i in 3xTF32, the small products
@@ -233,19 +179,6 @@ __device__ __forceinline__ int cluster_dim_x() {
   uint32_t n;
   asm("mov.u32 %0, %%cluster_nctaid.x;" : "=r"(n));
   return (int)n;
-}
-
-__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
-  const uint32_t d = static_cast<uint32_t>(__cvta_generic_to_shared(dst));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;" :: "r"(d), "l"(src)
-               : "memory");
-}
-__device__ __forceinline__ void cp_commit() {
-  asm volatile("cp.async.commit_group;" ::: "memory");
-}
-template <int N>
-__device__ __forceinline__ void cp_wait() {
-  asm volatile("cp.async.wait_group %0;" :: "n"(N) : "memory");
 }
 
 // a [rows][COLS] slice at src (row stride ld elements) into dst (row stride

@@ -15,10 +15,14 @@ the dtype, the shapes and whether q, k and v have 16-byte-aligned bases
   multiple of 16 bytes; the kernel's tensor maps are (width, heads, seq,
   batch), so the head widths d and dv must be multiples of 8 and q, k, v
   aligned.  The probabilities are rounded to bf16 before P·V;
-* ``"simt"`` (``csrc/flash_attention.cu``): f32, and bf16 whose strides or
-  bases TMA refuses (such as a contiguous view at an odd element offset),
-  or with no keys, on the CUDA cores.  f32 stays there because
-  TF32 keeps 10 mantissa bits, too few for the f32 limit of 1e-4.
+* ``"tf32x3"`` (``csrc/flash_attention.cu``): f32, and bf16 whose strides
+  or bases TMA refuses (such as a contiguous view at an odd element
+  offset), or with no keys, on the tensor cores in 3xTF32: each f32
+  operand split into two TF32 values and every product run as three
+  ``mma.sync`` TF32 products with f32 sums, which keeps the f32 limit of
+  1e-4 that TF32's 10 mantissa bits alone miss.  The probabilities stay
+  f32 (split, not rounded to bf16).  A bf16 operand is a TF32 value with
+  no small part, so in bf16 Q·Kᵀ takes one product and P·V two.
 
 A failed launch raises; it is never retried on the other route.
 ``launches`` counts kernel launches on both routes, ``launches_by_route``
@@ -45,10 +49,9 @@ from repro_torch.kernels.ref import flash_attention_ref
 #: kernel launches since the last reset (CPU calls never count)
 launches = 0
 #: the same, per route
-launches_by_route = {"wgmma": 0, "simt": 0}
-#: widest query/key and value head the kernel takes (the repository's
-#: configurations go up to 256; the tiles then take about 140 KB of shared
-#: memory)
+launches_by_route = {"wgmma": 0, "tf32x3": 0}
+#: widest query/key and value head the kernels take (the repository's
+#: configurations go up to 256)
 MAX_HEAD_DIM = 256
 _DTYPES = (torch.float32, torch.bfloat16)
 _FN: dict = {}
@@ -67,12 +70,12 @@ def flash_route(dtype: torch.dtype, B: int, Sq: int, Sk: int, H: int,
     TMA takes (head widths d and dv multiples of 8, so that the head stride
     d·2 or dv·2 and every stride above it are multiples of 16 bytes, at
     least one key, and ``aligned``: the bases of q, k and v multiples of
-    16 bytes), else ``"simt"``."""
+    16 bytes), else ``"tf32x3"``."""
     del B, Sq, H, KV   # every stride above the head's is a multiple of it
     if (dtype == torch.bfloat16 and d % 8 == 0 and dv % 8 == 0 and Sk >= 1
             and aligned):
         return "wgmma"
-    return "simt"
+    return "tf32x3"
 
 
 def _kernel_fn(route: str):
