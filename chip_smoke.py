@@ -75,12 +75,48 @@ Phases (each raises on failure; the script then exits non-zero):
    ``fedilora`` for 3 rounds, then ``fedilora_trimmed_kernel`` vs
    ``fedilora_trimmed`` (trim 0.25) for 2 rounds, each round from one
    shared starting state: the same cohorts, global adapters equal
-   within atol 1e-5 + rtol 1e-4, and one kernel launch a round.
+   within atol 1e-5 + rtol 1e-4, and one kernel launch a round;
+9. slo — the SLO scheduler over qwen2-0.5b at full width and depth (bf16,
+   ``lora_backend="grouped"``): under a ``ManualClock``, interactive ahead
+   of batch, EDF within a class, a ``reject`` burst, ``drop_lowest``,
+   ``degrade``, an in-flight timeout cancelled at the step boundary and a
+   retry, each with the assertions of ``tests/test_scheduler.py``
+   (admission order, shed and timeout sets, statuses, attempts, the
+   ``serving.shed`` / ``serving.timeout`` counts, one ``serve_step`` for
+   the step that cancels); in f32 weights, a degraded response is a prefix
+   of its unloaded tokens and a retried sampled request reproduces its
+   tokens; then an overload burst of 64 requests under the real clock
+   (per-class goodput, sheds, timeouts, latency and TTFT p50/p99), gated
+   only on invariants: every request ends exactly once and no shed
+   request held a slot.  BGMV must launch twice a LoRA site a layer for
+   every serve/prefill call;
+10. faults — fedbench-100m with one fault configuration (dropout,
+    stragglers, NaN on the wire, one Byzantine client) through
+    ``fedilora_trimmed_kernel`` (trim 0.25) and ``fedilora_clip_kernel``
+    (clip 90), two rounds each, beside their plain aggregators under the
+    same faults from one shared state: a finite global, ``health`` equal
+    to what the host schedule drew, dropped clients' stored adapters
+    unchanged bit for bit, one ``dim_agg_trimmed`` or ``dim_agg`` launch a
+    round, kernel and plain globals within atol 1e-5 + rtol 1e-4, one host
+    sync a round after the first; then a round in which every client drops
+    leaves the global bit for bit;
+11. timelines — fedbench-100m through ``fedilora_kernel``: 3
+    ``run_round_pipelined`` calls and ``flush_rounds`` against 3
+    ``run_round`` calls (the same records, globals within atol 1e-5 + rtol
+    1e-4); ``run_round_reference`` against ``run_round`` (cohort and edits
+    exact, loss within 1e-4, adapters within 5e-4); ``run_round_async``
+    through ``fedbuff_kernel`` at zero delays against the synchronous round
+    (2 ticks), then 6 ticks with delays, a buffer of 2 and the faults
+    phase's faults: one ``dim_agg`` launch a merge, and merges, staleness
+    and deferred stragglers as the reference's bookkeeping gives them.
+    The walls of pipelined and blocking rounds and of the async ticks are
+    printed as findings.
 
 Each path that runs a kernel (ops: ``lora_matmul`` and ``flash_attention``;
-serve: BGMV; train: ``dim_agg``; the trimmed run: ``dim_agg_trimmed``) is
-driven with the launch counts set to 0 just before it and read just after;
-a kernel that its path never launched fails the run.  It prints a JSON
+serve and slo: BGMV; train, faults and timelines: ``dim_agg``; the trimmed
+runs: ``dim_agg_trimmed``) is driven with the launch counts set to 0 just
+before it and read just after; a kernel that its path never launched fails
+the run.  It prints a JSON
 line describing every kernel, the ``nvidia-smi`` line, and last
 ``{"ok": true, "device": {...}}``.  Without a CUDA device, or without the
 rest of the repository beside it, it fails and prints no result.  A full
@@ -1414,11 +1450,319 @@ def phase_agreement() -> dict:
     return {"requests": len(reqs), "identical": True}
 
 
+# the slo phase: 3 tenants at ManualClock, then an overload burst of
+# 64 requests on the serve phase's engine under the real clock; the
+# interactive deadline sits inside the time 16 slots take to decode 16-64
+# tokens (about 40 ms a step on the card), so that both classes complete
+# some requests and report latency percentiles
+SLO_TENANTS, SLO_GEN, SLO_BURST, SLO_INTERACTIVE_S = 3, 8, 64, 2.5
+STANDARD_DISPATCH = {"serve_step", "serve_prefill", "serve_admit",
+                     "adapter_load", "fetch"}
+
+
+def _bgmv_held(engines, what: str) -> int:
+    """The BGMV wrapper's launches since the last reset must be two a LoRA
+    site a layer for every serve/prefill call of ``engines``."""
+    from repro_torch.kernels import grouped_lora_matmul as glm
+    calls = sum(e.dispatch_count["serve_step"]
+                + e.dispatch_count["serve_prefill"] for e in engines)
+    want = 2 * engines[0].cfg.num_blocks * calls
+    if glm.launches != want or not want:
+        raise AssertionError(f"{what}: grouped_lora_matmul launched "
+                             f"{glm.launches} times, expected {want}")
+    return glm.launches
+
+
+def phase_slo() -> dict:
+    """The SLO scheduler over qwen2-0.5b at full width and depth, bf16,
+    ``lora_backend="grouped"``: the scenarios of ``tests/test_scheduler.py``
+    that ``tests/test_torch_scheduler.py`` holds against the reference,
+    under a ``ManualClock`` with the test's assertions; two token
+    properties in f32 weights; then an overload burst under the real clock
+    (per-class goodput, sheds, timeouts, latency and TTFT percentiles),
+    gated only on invariants."""
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import grouped_lora_matmul as glm
+    from repro_torch.models.transformer import init_params
+    from repro_torch.serving import (AdapterStore, ManualClock, RetryPolicy,
+                                     Request, SamplingConfig,
+                                     SchedulerConfig, ServingEngine,
+                                     SLOScheduler)
+
+    cfg = get_config("qwen2-0.5b")
+    rng = np.random.default_rng(3)
+    adapters = make_adapters(cfg, rng, SLO_TENANTS)
+    prompts = {(k, i): rng.integers(0, cfg.vocab_size,
+                                    size=int(rng.integers(8, 33)))
+               for k in range(SLO_TENANTS) for i in range(2)}
+    bf16 = init_params(cfg, seed=0)
+
+    def engine(params, slots, **kw):
+        store = AdapterStore(slots=SLO_TENANTS, rank=max(RANKS))
+        for tid, (lora, rank) in adapters.items():
+            store.register(tid, lora, rank)
+        return ServingEngine(cfg, params, store, lora_scale=16.0 / max(RANKS),
+                             max_slots=slots, max_prompt=32, max_gen=SLO_GEN,
+                             prefill_chunk=16, lora_backend="grouped", **kw)
+
+    def req(k, i=0, **kw):
+        return Request(adapter_id=f"tenant{k}", prompt_tokens=prompts[(k, i)],
+                       gen_len=SLO_GEN, **kw)
+
+    def sched(eng, cfg_=None):
+        clock = ManualClock()
+        return SLOScheduler(eng, cfg_, clock=clock), clock
+
+    def drain(sc, clock):
+        for _ in range(2000):
+            eng = sc.engine
+            if not (sc.pending or sc.waiting_retries or eng.queue
+                    or eng.busy_slots):
+                return
+            if (sc.waiting_retries and not sc.pending
+                    and not eng.busy_slots and not eng.queue):
+                clock.advance(sc._retry[0][0] - clock() + 1e-9)
+            sc.step()
+            clock.advance(1e-4)
+        raise AssertionError("scheduler failed to drain")
+
+    def status(sc, uid):
+        return next(r for r in sc.results if r["uid"] == uid)
+
+    def check(cond, what):
+        if not cond:
+            raise AssertionError(f"slo: {what}")
+
+    glm.reset_launches()
+    engines, seen = [], []
+
+    # interactive ahead of batch, EDF within a class
+    eng = engine(bf16, 1)
+    sc, clock = sched(eng)
+    b, i = req(0, slo="batch"), req(1, slo="interactive")
+    sc.submit(b)
+    sc.submit(i)
+    sc.step()
+    check(eng._requests[0] is i, "interactive did not take the slot first")
+    drain(sc, clock)
+    check([r["uid"] for r in sc.results if r["status"] == "ok"]
+          == [i.uid, b.uid], "completion order")
+    engines.append(eng)
+    seen.append("interactive_ahead_of_batch")
+
+    eng = engine(bf16, 1)
+    sc, clock = sched(eng)
+    late, soon = (req(0, slo="batch", deadline_s=50.0),
+                  req(1, slo="batch", deadline_s=20.0))
+    sc.submit(late)
+    sc.submit(soon)
+    sc.step()
+    check(eng._requests[0] is soon, "EDF within a class")
+    drain(sc, clock)
+    check({r["status"] for r in sc.results} == {"ok"}, "EDF statuses")
+    engines.append(eng)
+    seen.append("edf_within_class")
+
+    # reject burst: shed requests never hold a slot
+    eng = engine(bf16, 1)
+    sc, clock = sched(eng, SchedulerConfig(queue_limit=0,
+                                           shed_policy="reject"))
+    rs = [req(k) for k in range(3)]
+    for r in rs:
+        sc.submit(r)
+    check([r["uid"] for r in sc.results if r["status"] == "shed"]
+          == [rs[1].uid, rs[2].uid], "reject shed set")
+    drain(sc, clock)
+    m = eng.telemetry.metrics
+    check(eng.dispatch_count["serve_admit"] == 1, "reject admissions")
+    check(m.get("serving.shed").value == 2, "serving.shed")
+    check(m.snapshot()["histograms"]["serving.latency_seconds"]["count"]
+          == 1, "latency histogram counts only ok completions")
+    engines.append(eng)
+    seen.append("reject_burst")
+
+    # drop_lowest: an interactive arrival evicts a pending batch request
+    eng = engine(bf16, 1)
+    sc, clock = sched(eng, SchedulerConfig(queue_limit=1,
+                                           shed_policy="drop_lowest"))
+    b1, b2, i1, i2 = (req(0, slo="batch"), req(1, slo="batch"),
+                      req(2, slo="interactive"), req(0, slo="interactive"))
+    sc.submit(b1)
+    sc.step()
+    for r in (b2, i1, i2):
+        clock.advance(1e-3)
+        sc.submit(r)
+    check([r["uid"] for r in sc.results if r["status"] == "shed"]
+          == [b2.uid, i2.uid], "drop_lowest shed set")
+    drain(sc, clock)
+    check({r["uid"] for r in sc.results if r["status"] == "ok"}
+          == {b1.uid, i1.uid}, "drop_lowest completions")
+    engines.append(eng)
+    seen.append("drop_lowest")
+
+    # degrade: admitted with its length clamped
+    eng = engine(bf16, 1)
+    sc, clock = sched(eng, SchedulerConfig(queue_limit=0,
+                                           shed_policy="degrade",
+                                           degrade_gen_len=2))
+    first, deg = req(1), req(0)
+    sc.submit(first)
+    sc.submit(deg)
+    check(deg.gen_len == 2 and deg.degraded, "degrade clamp")
+    drain(sc, clock)
+    rec = status(sc, deg.uid)
+    check(rec["status"] == "ok" and rec.get("degraded")
+          and len(rec["tokens"]) == 2, "degraded completion")
+    engines.append(eng)
+    seen.append("degrade")
+
+    # in-flight timeout: cancelled at the step boundary, no extra launch
+    eng = engine(bf16, 1)
+    sc, clock = sched(eng, SchedulerConfig(interactive_deadline_s=0.05,
+                                           batch_deadline_s=100.0))
+    doomed, after = req(0, slo="interactive"), req(1, slo="batch")
+    sc.submit(doomed)
+    sc.submit(after)
+    sc.step()
+    check(eng._requests[0] is doomed, "timeout: doomed admitted")
+    steps0 = eng.dispatch_count["serve_step"]
+    clock.advance(1.0)
+    sc.step()
+    check(eng._requests[0] is after, "timeout: slot reused at once")
+    check(eng.dispatch_count["serve_step"] == steps0 + 1,
+          "timeout: the cancelling step launched more than one step")
+    check(status(sc, doomed.uid)["status"] == "timeout", "timeout status")
+    check(eng.telemetry.metrics.get("serving.timeout").value == 1,
+          "serving.timeout")
+    drain(sc, clock)
+    dc = dict(eng.dispatch_count)
+    check(set(dc) <= STANDARD_DISPATCH and dc["serve_step"] == eng.steps
+          and dc["fetch"] == 1, f"timeout: dispatches {dc}")
+    check(status(sc, after.uid)["status"] == "ok", "timeout: survivor")
+    engines.append(eng)
+    seen.append("timeout_cancels_in_flight")
+
+    # retry with backoff: the same request object comes back
+    eng = engine(bf16, 1)
+    sc, clock = sched(eng, SchedulerConfig(
+        queue_limit=0, shed_policy="reject",
+        retry=RetryPolicy(max_attempts=3, backoff_s=0.5, multiplier=2.0)))
+    r1, r2 = req(0), req(1)
+    sc.submit(r1)
+    sc.submit(r2)
+    check(sc.waiting_retries == 1 and r2.attempts == 1, "retry queued")
+    sc.step()
+    check(sc.waiting_retries == 1, "retry before its backoff")
+    drain(sc, clock)
+    rec = status(sc, r2.uid)
+    check(rec["status"] == "ok" and rec["attempts"] == 2, "retry outcome")
+    engines.append(eng)
+    seen.append("retry_backoff")
+    scenario_launches = _bgmv_held(engines, "slo scenarios")
+
+    # token properties in f32 weights (as the agreement phase runs them)
+    f32 = init_params(cfg, seed=0, dtype="float32")
+    full = engine(f32, 1).run([req(0)])[0]["tokens"]
+    eng = engine(f32, 1)
+    sc, clock = sched(eng, SchedulerConfig(queue_limit=0,
+                                           shed_policy="degrade",
+                                           degrade_gen_len=2))
+    sc.submit(req(1))
+    deg = req(0)
+    sc.submit(deg)
+    drain(sc, clock)
+    check(status(sc, deg.uid)["tokens"].tolist() == full[:2].tolist(),
+          "degraded tokens are not a prefix of the unloaded run")
+    sampling = SamplingConfig(temperature=0.8, top_k=5)
+    again = req(0)
+    ref = engine(f32, 1, sampling=sampling, sample_seed=7).run(
+        [again])[0]["tokens"]
+    eng = engine(f32, 1, sampling=sampling, sample_seed=7)
+    sc, clock = sched(eng, SchedulerConfig(
+        queue_limit=0, shed_policy="reject",
+        retry=RetryPolicy(max_attempts=3, backoff_s=0.5)))
+    sc.submit(req(1))
+    sc.submit(again)
+    drain(sc, clock)
+    rec = status(sc, again.uid)
+    check(rec["attempts"] == 2 and rec["tokens"].tolist() == ref.tolist(),
+          "a retried sampled request changed its tokens")
+    del f32
+
+    # overload burst under the real clock on the serve phase's engine
+    burst_adapters = make_adapters(cfg, np.random.default_rng(4), N_TENANTS)
+    eng, store = make_engine(cfg, bf16, burst_adapters, backend="grouped")
+    brng = np.random.default_rng(5)
+    burst = make_requests(cfg, brng, SLO_BURST)
+    for r in burst:
+        r.slo = "interactive" if brng.random() < 0.35 else "batch"
+    sc = SLOScheduler(eng, SchedulerConfig(
+        interactive_deadline_s=SLO_INTERACTIVE_S, batch_deadline_s=8.0,
+        queue_limit=16,
+        shed_policy="drop_lowest",
+        retry=RetryPolicy(max_attempts=2, backoff_s=0.2)))
+    glm.reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    done = sc.run(burst)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    burst_launches = _bgmv_held([eng], "slo burst")
+    uids = sorted(r["uid"] for r in done)
+    check(uids == sorted(r.uid for r in burst),
+          "burst: a request ended more than once or never")
+    by_uid = {r.uid: r for r in burst}
+    check(all(by_uid[r["uid"]].admitted_at is None
+              for r in done if r["status"] == "shed"),
+          "burst: a shed request held a slot")
+    rep = sc.slo_report()
+    m = eng.telemetry.metrics
+    classes = {}
+    for c, d in rep["per_class"].items():
+        lat, ttft = (m.get(f"serving.latency_seconds.{c}"),
+                     m.get(f"serving.ttft_seconds.{c}"))
+        classes[c] = dict(d, **{
+            f"{name}_{q}": (h.quantile(v) if h is not None else None)
+            for name, h in (("latency_s", lat), ("ttft_s", ttft))
+            for q, v in (("p50", 0.5), ("p99", 0.99))})
+    tokens = sum(len(r["tokens"]) for r in done if r["status"] == "ok")
+    print(f"slo (smoke run, not a benchmark): qwen2-0.5b bf16 grouped, "
+          f"{len(seen)} ManualClock scenarios held, f32 degrade-prefix and "
+          f"retry-reproduces-tokens held; burst of {len(burst)} requests "
+          f"(16 slots, queue_limit 16, drop_lowest, interactive deadline "
+          f"{SLO_INTERACTIVE_S} s, batch 8 s) in {wall:.2f} s, "
+          f"{tokens} ok tokens, goodput {rep['goodput']}/{rep['offered']}; "
+          + "; ".join(
+              f"{c}: offered {d['offered']} goodput {d['goodput']} shed "
+              f"{d['shed']} timeout {d['timeout']} latency p50/p99 "
+              f"{_fmt(d['latency_s_p50'])}/{_fmt(d['latency_s_p99'])} s "
+              f"ttft p50/p99 {_fmt(d['ttft_s_p50'])}/{_fmt(d['ttft_s_p99'])} s"
+              for c, d in classes.items())
+          + f"; BGMV launches {scenario_launches} + {burst_launches}",
+          flush=True)
+    return {"scenarios": seen, "launches": scenario_launches + burst_launches,
+            "scenario_launches": scenario_launches,
+            "burst_launches": burst_launches, "burst_wall_s": wall,
+            "burst_ok_tokens": tokens, "report": rep, "classes": classes,
+            "burst_steps": eng.steps, "adapter_loads": store.loads}
+
+
+def _fmt(x) -> str:
+    return "n/a" if x is None else f"{x:.3f}"
+
+
+_FED_DATA: dict = {}
+
+
 def fed_setup(aggregator: str, *, base=None, **fed_kw):
     """fedbench-100m as ``examples/federated_finetune.py`` sets it up: the
     synthetic task with seed 1, 10 clients of heterogeneous sizes, 80/20
     train/eval shards, 60% missing modalities, ranks 4..32, 4 clients a
-    round, batch 8, 10 local steps, editing on."""
+    round, batch 8, 10 local steps, editing on.  The corpus is made once
+    and shared by every trainer (none writes to it)."""
     from repro_torch.configs import get_config
     from repro_torch.core.editing import EditConfig
     from repro_torch.data import (SyntheticTaskConfig, apply_missing_modality,
@@ -1428,15 +1772,18 @@ def fed_setup(aggregator: str, *, base=None, **fed_kw):
     from repro_torch.models.transformer import init_params
     from repro_torch.optim import OptimizerConfig
 
-    task = SyntheticTaskConfig(seed=1)
-    sizes = heterogeneous_sizes(10, 900, seed=1)
-    clients, gtest = make_federated_datasets(task, 10, sizes, seed=1)
-    tr, ev = [], []
-    for k, d in enumerate(clients):
-        n_tr = int(d["tokens"].shape[0] * 0.8)
-        tr.append(apply_missing_modality({kk: v[:n_tr] for kk, v in d.items()},
-                                         0.6, task.prompt_len, seed=k))
-        ev.append({kk: v[n_tr:] for kk, v in d.items()})
+    if not _FED_DATA:
+        task = SyntheticTaskConfig(seed=1)
+        sizes = heterogeneous_sizes(10, 900, seed=1)
+        clients, gtest = make_federated_datasets(task, 10, sizes, seed=1)
+        tr, ev = [], []
+        for k, d in enumerate(clients):
+            n_tr = int(d["tokens"].shape[0] * 0.8)
+            tr.append(apply_missing_modality(
+                {kk: v[:n_tr] for kk, v in d.items()}, 0.6, task.prompt_len,
+                seed=k))
+            ev.append({kk: v[n_tr:] for kk, v in d.items()})
+        _FED_DATA.update(tr=tr, ev=ev, gtest=gtest)
     fed = FederatedConfig(num_clients=10, sample_rate=0.4, ranks=TRAIN_RANKS,
                           local_steps=10, batch_size=8, aggregator=aggregator,
                           edit=EditConfig(), **fed_kw)
@@ -1444,7 +1791,8 @@ def fed_setup(aggregator: str, *, base=None, **fed_kw):
     cfg = get_config("fedbench-100m")
     if base is None:
         base = init_params(cfg, seed=42)
-    return FederatedTrainer(cfg, fed, opt, tr, ev, gtest, base_params=base)
+    return FederatedTrainer(cfg, fed, opt, _FED_DATA["tr"], _FED_DATA["ev"],
+                            _FED_DATA["gtest"], base_params=base)
 
 
 def phase_train() -> dict:
@@ -1643,6 +1991,315 @@ def phase_train_agreement() -> dict:
     return out
 
 
+# the faults phase: dropout, stragglers, NaN on the wire and one Byzantine
+# client (7, sampled in both rounds of fed_setup's cohorts), drawn so that
+# the two rounds hold each kind at least once; the clip norm sits inside
+# fedbench-100m's adapter norms (about 48 at rank 4 to 136 at rank 32), so
+# the clients of rank >= 16 are clipped
+SMOKE_FAULTS = dict(enabled=True, dropout_rate=0.2, straggler_rate=0.2,
+                    corrupt_rate=0.3, corrupt_mode="nan",
+                    byzantine_clients=(7,), seed=19)
+FAULT_ROUNDS, FAULT_CLIP = 2, 90.0
+# the timelines phase: pipelined and blocking rounds, async ticks
+PIPELINED_ROUNDS, ASYNC_TICKS = 3, 6
+ASYNC_DELAYS = (0, 1, 0, 2, 0, 1, 0, 2, 0, 1)
+
+
+def _round_synced(call):
+    """Run ``call()`` (a round, which ends in its blocking fetch) and record
+    the host syncs it made, by source."""
+    import torch
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            t0 = time.perf_counter()
+            rec = call()
+            wall = time.perf_counter() - t0
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    syncs = [f"{os.path.relpath(w.filename, ROOT)}:{w.lineno}"
+             for w in caught if "synchroniz" in str(w.message)]
+    return rec, wall, syncs
+
+
+def _finite(tree) -> bool:
+    return all(bool(x.isfinite().all()) for x in _leaves(tree))
+
+
+def phase_faults() -> dict:
+    """Faulted rounds on fedbench-100m through ``fedilora_trimmed_kernel``
+    (trim 0.25) and ``fedilora_clip_kernel`` (clip 90), two rounds each,
+    beside the plain aggregators under the same faults from one shared
+    state each round; then one round in which every client drops."""
+    import numpy as np
+    import torch
+
+    from repro_torch.federated import FaultConfig, FaultSchedule
+    from repro_torch.kernels import dim_agg as DK
+
+    faults = FaultConfig(**SMOKE_FAULTS)
+    schedule = FaultSchedule(faults, 10)
+    out, base = {}, None
+    for kern, plain, key, kw in [
+            ("fedilora_trimmed_kernel", "fedilora_trimmed", "dim_agg_trimmed",
+             {"trim_frac": 0.25}),
+            ("fedilora_clip_kernel", "fedilora_clip", "dim_agg",
+             {"clip_norm": FAULT_CLIP})]:
+        a = fed_setup(kern, base=base, faults=faults, **kw)
+        base = a.base_params
+        b = fed_setup(plain, base=base, faults=faults, **kw)
+        DK.reset_launches()
+        rows = []
+        for t in range(FAULT_ROUNDS):
+            before = {n: {m: e[m].clone() for m in ("A", "B")}
+                      for n, e in a.stacked_lora.items()}
+            ra, wall, syncs = _round_synced(a.run_round)
+            rb = b.run_round()
+            co = schedule.cohort(t, ra["sampled"])
+            alive = (co["keep"] > 0) & (co["weight"] > 0)
+            want = {"n_dropped": float(co["n_dropped"]),
+                    "n_forfeited": float(co["n_forfeited"]),
+                    "n_nonfinite": float((alive & np.isnan(co["nan"])).sum())}
+            got = {k: ra["health"][k] for k in want}
+            if got != want or {k: rb["health"][k] for k in want} != want:
+                raise AssertionError(f"{kern} round {t}: health {ra['health']}"
+                                     f" (plain {rb['health']}), the schedule "
+                                     f"drew {want}")
+            if ra["sampled"] != rb["sampled"]:
+                raise AssertionError(f"{kern}: cohorts {ra['sampled']} vs "
+                                     f"{rb['sampled']}")
+            dropped = [k for i, k in enumerate(ra["sampled"])
+                       if co["keep"][i] <= 0]
+            for k in dropped:
+                for n, e in a.stacked_lora.items():
+                    for m in ("A", "B"):
+                        if not torch.equal(e[m][k], before[n][m][k]):
+                            raise AssertionError(f"{kern}: dropped client {k}"
+                                                 f"'s stored {n}.{m} moved")
+            if not _finite(a.server.global_lora):
+                raise AssertionError(f"{kern} round {t}: global not finite")
+            if DK.launches[key] != t + 1:
+                raise AssertionError(f"{kern} round {t}: launches "
+                                     f"{dict(DK.launches)}, expected {t + 1} "
+                                     f"{key}")
+            if t > 0 and len(syncs) != 1:
+                raise AssertionError(f"{kern} round {t}: host syncs {syncs}, "
+                                     "expected one (the metrics fetch)")
+            err = _adapter_err(a.server.global_lora, b.server.global_lora)
+            rows.append({"round": t, "sampled": ra["sampled"],
+                         "health": ra["health"], "dropped": dropped,
+                         "wall_s": wall, "host_syncs": syncs, **err})
+            _sync_adapters(b, a)
+        if not all(r["within_tol"] for r in rows):
+            raise AssertionError(f"{kern} vs {plain} under faults: {rows}")
+        if key == "dim_agg" and a.health["clip_rate_sum"] <= 0:
+            raise AssertionError(f"{kern}: nothing was clipped ({a.health})")
+        out[kern] = {"rounds": rows, "health": dict(a.health),
+                     "launches": dict(DK.launches)}
+        print(f"faults: {kern} vs {plain}, {FAULT_ROUNDS} faulted rounds: "
+              f"health {[r['health'] for r in rows]}, dropped "
+              f"{[r['dropped'] for r in rows]} kept their state, global err "
+              f"{[r['max_abs_err'] for r in rows]}, launches "
+              f"{dict(DK.launches)}, host syncs {[r['host_syncs'] for r in rows]}",
+              flush=True)
+    gone = fed_setup("fedilora_kernel", base=base,
+                     faults=FaultConfig(enabled=True, dropout_rate=1.0))
+    g0 = {n: {m: e[m].clone() for m in ("A", "B")}
+          for n, e in gone.server.global_lora.items()}
+    DK.reset_launches()
+    rec = gone.run_round()
+    if rec["health"]["n_dropped"] != 4.0 or \
+            _adapter_err(gone.server.global_lora, g0)["max_abs_err"] != 0.0:
+        raise AssertionError(f"all-dropped round moved the global: {rec}")
+    out["all_dropped"] = {"health": rec["health"],
+                          "launches": dict(DK.launches)}
+    print(f"faults: an all-dropped round kept the global bit for bit "
+          f"(health {rec['health']})", flush=True)
+    out["launches"] = {
+        "dim_agg_trimmed": out["fedilora_trimmed_kernel"]["launches"][
+            "dim_agg_trimmed"],
+        "dim_agg": out["fedilora_clip_kernel"]["launches"]["dim_agg"]
+        + out["all_dropped"]["launches"]["dim_agg"]}
+    return out
+
+
+def _expected_async(recs, delays, M: int, schedule) -> list:
+    """The reference's async bookkeeping replayed on the host from the
+    ticks' cohorts: each tick's merges, staleness list and deferred count,
+    and whether every cohort was drawn from idle clients."""
+    inflight, buffer, version, out = [], [], 0, []
+    for rec in recs:
+        tick, deferred = rec["tick"], 0
+        busy = {c for c, _, _ in inflight}
+        idle = not set(rec["sampled"]) & busy
+        if rec["sampled"]:
+            co = schedule.cohort(tick, rec["sampled"])
+            deferred = int(co["n_forfeited"])
+            for i, k in enumerate(rec["sampled"]):
+                if co["keep"][i] > 0:
+                    inflight.append((k, version, tick + delays[k]
+                                     + int(co["extra_ticks"][i])))
+        buffer += [e for e in inflight if e[2] <= tick]
+        inflight = [e for e in inflight if e[2] > tick]
+        stal = []
+        while len(buffer) >= M:
+            batch, buffer = buffer[:M], buffer[M:]
+            stal += [float(version - v) for _, v, _ in batch]
+            version += 1
+        out.append({"merges": len(stal) // M, "staleness": stal,
+                    "n_deferred": deferred, "idle": idle})
+    return out
+
+
+def phase_timelines() -> dict:
+    """fedbench-100m through ``fedilora_kernel``: pipelined rounds against
+    blocking ones, the reference host loop against the fused round, and
+    the buffered-async timeline through ``fedbuff_kernel``, at zero delays
+    against the synchronous round, then with delays, a buffer of 2 and the
+    faults phase's fault configuration."""
+    import torch
+
+    from repro_torch.federated import FaultConfig, FaultSchedule
+    from repro_torch.kernels import dim_agg as DK
+
+    def same_record(x, y, what, loss_tol):
+        for k in ("round", "sampled", "edited_layers"):
+            if x[k] != y[k]:
+                raise AssertionError(f"{what}: {k} {x[k]} vs {y[k]}")
+        if abs(x["train_loss"] - y["train_loss"]) > loss_tol:
+            raise AssertionError(f"{what}: loss {x['train_loss']} vs "
+                                 f"{y['train_loss']}")
+
+    out = {}
+    # ---- pipelined against blocking
+    a = fed_setup("fedilora_kernel")
+    base = a.base_params
+    b = fed_setup("fedilora_kernel", base=base)
+    DK.reset_launches()
+    piped, pipe_walls = [], []
+    torch.cuda.synchronize()
+    t_all = time.perf_counter()
+    for _ in range(PIPELINED_ROUNDS):
+        t0 = time.perf_counter()
+        piped.append(a.run_round_pipelined())
+        pipe_walls.append(time.perf_counter() - t0)
+    piped.append(a.flush_rounds())
+    torch.cuda.synchronize()
+    pipe_total = time.perf_counter() - t_all
+    block_walls, blocked = [], []
+    t_all = time.perf_counter()
+    for _ in range(PIPELINED_ROUNDS):
+        t0 = time.perf_counter()
+        blocked.append(b.run_round())
+        block_walls.append(time.perf_counter() - t0)
+    torch.cuda.synchronize()
+    block_total = time.perf_counter() - t_all
+    if piped[0] is not None:
+        raise AssertionError("the first pipelined call returned a record")
+    for x, y in zip(piped[1:], blocked):
+        same_record(x, y, "pipelined vs blocking", 1e-5)
+    pipe_err = _adapter_err(a.server.global_lora, b.server.global_lora)
+    if not pipe_err["within_tol"] or \
+            DK.launches["dim_agg"] != 2 * PIPELINED_ROUNDS:
+        raise AssertionError(f"pipelined vs blocking: {pipe_err}, launches "
+                             f"{dict(DK.launches)}")
+    out["pipelined"] = {"records": piped[1:], "pipelined_call_wall_s":
+                        pipe_walls, "blocking_round_wall_s": block_walls,
+                        "pipelined_total_s": pipe_total,
+                        "blocking_total_s": block_total, **pipe_err,
+                        "bit_equal": pipe_err["max_abs_err"] == 0.0}
+    print(f"timelines: {PIPELINED_ROUNDS} pipelined rounds + flush == "
+          f"{PIPELINED_ROUNDS} blocking rounds (global max err "
+          f"{pipe_err['max_abs_err']}); calls {[round(w, 3) for w in pipe_walls]}"
+          f" s (total {pipe_total:.3f} s with the flush) vs rounds "
+          f"{[round(w, 3) for w in block_walls]} s (total {block_total:.3f}"
+          " s)", flush=True)
+
+    # ---- the reference host loop against the fused round
+    c = fed_setup("fedilora_kernel", base=base)
+    d = fed_setup("fedilora_kernel", base=base)
+    t0 = time.perf_counter()
+    rr = c.run_round_reference()
+    ref_wall = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    rf = d.run_round()
+    fused_wall = time.perf_counter() - t0
+    same_record(rr, rf, "reference loop vs fused round", 1e-4)
+    errs = {what: max(_adapter_err(x, y)["max_abs_err"] for x, y in pairs)
+            for what, pairs in (
+                ("global", [(c.server.global_lora, d.server.global_lora)]),
+                ("stacked", [(c.stacked_lora, d.stacked_lora)]))}
+    if max(errs.values()) > 5e-4:
+        raise AssertionError(f"reference loop vs fused round: {errs}")
+    out["reference"] = {"errors": errs, "reference_wall_s": ref_wall,
+                        "fused_wall_s": fused_wall}
+    print(f"timelines: run_round_reference == run_round (cohort "
+          f"{rr['sampled']}, edits {rr['edited_layers']}, max err {errs}); "
+          f"walls {ref_wall:.3f} s vs {fused_wall:.3f} s", flush=True)
+
+    # ---- async at zero delays against the synchronous round
+    e = fed_setup("fedbuff_kernel", base=base)
+    f = fed_setup("fedilora_kernel", base=base)
+    zero = []
+    for t in range(2):
+        DK.reset_launches()
+        t0 = time.perf_counter()
+        ra = e.run_round_async()
+        torch.cuda.synchronize()
+        tick_wall = time.perf_counter() - t0
+        merges = DK.launches["dim_agg"]
+        rs = f.run_round()
+        if ra["sampled"] != rs["sampled"] or ra["merges"] != 1 or \
+                merges != 1 or ra["staleness"] != [0.0] * 4:
+            raise AssertionError(f"async tick {t} vs round: {ra} vs {rs}, "
+                                 f"{merges} launches")
+        err = _adapter_err(e.server.global_lora, f.server.global_lora)
+        if not err["within_tol"]:
+            raise AssertionError(f"async tick {t} vs round: {err}")
+        zero.append({"tick_wall_s": tick_wall, **err})
+        _sync_adapters(f, e)
+    out["async_zero_delays"] = zero
+
+    # ---- async with delays, a buffer of 2 and the faults
+    faults = FaultConfig(**SMOKE_FAULTS)
+    g = fed_setup("fedbuff_kernel", base=base, buffer_size=2,
+                  async_delays=ASYNC_DELAYS, faults=faults)
+    recs, walls, launches = [], [], []
+    for _ in range(ASYNC_TICKS):
+        DK.reset_launches()
+        t0 = time.perf_counter()
+        recs.append(g.run_round_async())
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+        launches.append(DK.launches["dim_agg"])
+    want = _expected_async(recs, ASYNC_DELAYS, 2, FaultSchedule(faults, 10))
+    for rec, w, n in zip(recs, want, launches):
+        got = {"merges": rec["merges"], "staleness": rec["staleness"],
+               "n_deferred": rec.get("health", {}).get("n_deferred", 0),
+               "idle": True}
+        if got != w or n != rec["merges"]:
+            raise AssertionError(f"async tick {rec['tick']}: {got}, "
+                                 f"{n} launches; the reference's "
+                                 f"bookkeeping gives {w}")
+    if not _finite(g.server.global_lora) or g.health["n_deferred"] <= 0 \
+            or sum(launches) == 0:
+        raise AssertionError(f"async with faults: health {dict(g.health)}, "
+                             f"launches {launches}")
+    out["async_delays"] = {"ticks": recs, "tick_wall_s": walls,
+                           "launches": launches, "health": dict(g.health)}
+    out["launches"] = {"dim_agg": 2 * PIPELINED_ROUNDS + len(zero)
+                       + sum(launches)}
+    print(f"timelines: async at zero delays == sync (max err "
+          f"{[z['max_abs_err'] for z in zero]}, tick walls "
+          f"{[round(z['tick_wall_s'], 3) for z in zero]} s); with delays, "
+          f"buffer 2 and faults: merges {[r['merges'] for r in recs]}, "
+          f"staleness {[r['staleness'] for r in recs]}, health "
+          f"{dict(g.health)}, dim_agg launches {launches} (one a merge), "
+          f"tick walls {[round(w, 3) for w in walls]} s", flush=True)
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -1689,8 +2346,11 @@ def main() -> int:
     opsr = timed("ops", phase_ops, dev_name)
     served = timed("serve", phase_serve)
     agree = timed("agreement", phase_agreement)
+    slo = timed("slo", phase_slo)
     trained = timed("train", phase_train)
     train_agree = timed("train_agreement", phase_train_agreement)
+    faulted = timed("faults", phase_faults)
+    timelines = timed("timelines", phase_timelines)
     print("phase wall s: " + ", ".join(f"{k} {v:.1f}"
                                        for k, v in phase_s.items()),
           flush=True)
@@ -1704,6 +2364,8 @@ def main() -> int:
         "source": "src/repro_torch/kernels/csrc/grouped_lora_matmul.cu",
         "replaces": "src/repro/kernels/lora_gather_matmul.py:71",
         "launches": served["launches"],
+        "path_launches": {"serve": served["launches"],
+                          "slo": slo["launches"]},
         "max_abs_err": max(c["max_abs_err"] for c in cases),
         "max_err_f32": max(c["max_abs_err"] for c in cases
                            if c["x_dtype"] == "float32"),
@@ -1719,6 +2381,18 @@ def main() -> int:
     # headline for both dim_agg kernels: the round's wq.A leaf, unscaled
     # (the fedilora_kernel path), with the round's whole tree in one launch
     # beside it; every case is in build/chip_smoke.json
+    path_launches = {
+        "dim_agg": {"train": trained["launches"]["dim_agg"],
+                    "faults": faulted["launches"]["dim_agg"],
+                    "timelines": timelines["launches"]["dim_agg"]},
+        "dim_agg_trimmed": {
+            "train_agreement": train_agree["fedilora_trimmed_kernel"][
+                "launches"]["dim_agg_trimmed"],
+            "faults": faulted["launches"]["dim_agg_trimmed"]}}
+    for kernel, paths in path_launches.items():
+        if not all(paths.values()):
+            raise AssertionError(f"{kernel} was not launched on every path "
+                                 f"that runs it: {paths}")
     for name, line, launches, lib_call, tree_fn in [
             ("dim_agg", 115, trained["launches"]["dim_agg"],
              "torch.einsum('kd,kldn->ldn', w, x)", "fedilora_aggregate_tree"),
@@ -1734,7 +2408,7 @@ def main() -> int:
             "name": name, "route": "cuda",
             "source": "src/repro_torch/kernels/csrc/dim_agg.cu",
             "replaces": f"src/repro/kernels/dim_agg.py:{line}",
-            "launches": launches,
+            "launches": launches, "path_launches": path_launches[name],
             "max_abs_err": max(c["max_abs_err"] for c in mine),
             "ms": h["ms"], "plain_ms": h["plain_ms"],
             "library_ms": h["library_ms"],
@@ -1796,8 +2470,10 @@ def main() -> int:
                    "kernel_widths": kern["widths"], "sass": sass,
                    "probe": probe,
                    "ops": opsr,
-                   "serve": served, "agreement": agree, "train": trained,
-                   "train_agreement": train_agree}, f, indent=1)
+                   "serve": served, "agreement": agree, "slo": slo,
+                   "train": trained, "train_agreement": train_agree,
+                   "faults": faulted, "timelines": timelines}, f, indent=1,
+                  default=float)
     print(json.dumps({"kernels": records}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

@@ -1,6 +1,7 @@
-"""Federated fine-tuning (port of ``repro/federated``: the configuration
-and the resident-state trainer)."""
+"""Federated fine-tuning (port of ``repro/federated``: the configuration,
+the fault schedule and the resident-state trainer)."""
 
-from repro_torch.federated.config import FaultConfig, FederatedConfig  # noqa: F401
+from repro_torch.federated.config import FederatedConfig  # noqa: F401
+from repro_torch.federated.faults import FaultConfig, FaultSchedule  # noqa: F401
 from repro_torch.federated.runtime import (ClientState,  # noqa: F401
                                            FederatedTrainer, ServerState)

@@ -1,43 +1,12 @@
 """Federated fine-tuning configuration (copy of
-``repro/federated/config.py`` and of ``FaultConfig`` from
-``repro/federated/faults.py``; the port's round raises
-``NotImplementedError`` for an active fault model)."""
+``repro/federated/config.py``)."""
 
 from __future__ import annotations
 
 import dataclasses
 
 from repro_torch.core.editing import EditConfig
-
-_CORRUPT_MODES = ("sign_flip", "scale", "nan", "inf")
-
-
-@dataclasses.dataclass(frozen=True)
-class FaultConfig:
-    """Per-round client fault model.  Disabled by default (zero faults)."""
-
-    enabled: bool = False
-    dropout_rate: float = 0.0
-    straggler_rate: float = 0.0
-    round_deadline: float = 0.0
-    straggler_ticks: int = 2
-    corrupt_rate: float = 0.0
-    corrupt_mode: str = "sign_flip"          # sign_flip | scale | nan | inf
-    corrupt_scale: float = 100.0
-    byzantine_clients: tuple = ()
-    seed: int = 0
-
-    def __post_init__(self):
-        if self.corrupt_mode not in _CORRUPT_MODES:
-            raise ValueError(
-                f"corrupt_mode {self.corrupt_mode!r}; have {_CORRUPT_MODES}")
-
-    @property
-    def active(self) -> bool:
-        return bool(self.enabled and (
-            self.dropout_rate > 0 or self.straggler_rate > 0
-            or self.round_deadline > 0 or self.corrupt_rate > 0
-            or self.byzantine_clients))
+from repro_torch.federated.faults import FaultConfig
 
 
 @dataclasses.dataclass(frozen=True)

@@ -12,18 +12,45 @@ one.
 
 ``run_round`` is one call of the fused round (``launch/fedround.py``) over
 persistent stacked device state ``[K, ...]``, followed by the round's one
-blocking fetch: losses, edited modules and post-pruning ranks, packed
-into one tensor and copied to the host once.  Host randomness is numpy,
-drawn with the reference's calls in the reference's order, so cohorts and
-minibatches match it bit for bit.  ``dispatch_count`` tallies the round
-and evaluation calls under the reference's names (``round_step``,
-``eval_loss``, ``generate``, ``population_eval``).
+blocking fetch: losses, edited modules, the fault health values and
+post-pruning ranks, packed into one tensor and copied to the host once.
+Host randomness is numpy, drawn with the reference's calls in the
+reference's order, so cohorts, minibatches and fault draws match it bit
+for bit.  ``dispatch_count`` tallies the round and evaluation calls under
+the reference's names (``round_step``, ``client_update``,
+``buffer_merge``, ``eval_loss``, ``generate``, ``population_eval``).
+
+The reference's other timelines:
+
+* ``run_round_reference`` — the host loop: one local-training call and
+  one blocking read per client, eager self-pruning and editing, one
+  stack, then aggregation through the registry (the numerical reference
+  for the fused round, and the only timeline that measures each client's
+  step time for ``measure_delays``);
+* ``run_round_pipelined`` / ``flush_rounds`` — builds round t+1's host
+  inputs while round t runs on the device, fetches round t's record, then
+  enqueues round t+1; the record returned is one round stale (``None`` on
+  the first call) and ``run_round`` drains a pending round first.  The
+  fetch of round t must precede round t+1's enqueue: the stacked state and
+  the ranks are updated in place, so a later fetch would read round t+1's
+  ranks into round t's record;
+* ``run_round_async`` — buffered asynchronous FL (FedBuff): each tick
+  trains a cohort of idle clients against the current global
+  (``client_update``), retires cohorts whose simulated delay has elapsed
+  into a buffer of per-client updates, and merges every ``M`` buffered
+  updates through ``fedbuff`` / ``fedbuff_kernel`` (``buffer_merge``) with
+  each update's staleness.
+
+An active ``FederatedConfig.faults`` draws dropouts, stragglers and wire
+corruption per (round, client) from ``federated/faults.py``; the fused
+round and the async tick absorb them on the device and the round's health
+values ride its one fetch (``health`` counts them across rounds).
 
 Not ported yet (each raises ``NotImplementedError`` where it is asked
-for): device meshes, the paged client store, fault injection, FLoRA's
-round, and the reference's other timelines (``run_round_reference``,
-``run_round_pipelined``, ``run_round_async``).  The trainer runs on the
-CUDA device unless ``device="cpu"`` is passed.
+for): device meshes, the paged client store and FLoRA's round; the
+evaluation's ``vmapped=False`` / ``cached=False`` arguments do not exist
+here.  The trainer runs on the CUDA device unless ``device="cpu"`` is
+passed.
 """
 
 from __future__ import annotations
@@ -37,11 +64,18 @@ import numpy as np
 import torch
 
 from repro_torch import resolve_device
-from repro_torch.core.lora import LoRAConfig, init_lora_params
+from repro_torch.core import aggregation as AG
+from repro_torch.core.editing import edit_lora
+from repro_torch.core.lora import (LoRAConfig, init_lora_params,
+                                   mask_lora_params, truncate_redistribute)
 from repro_torch.core.tree import tree_map
 from repro_torch.data.synthetic import EOS
 from repro_torch.federated.config import FederatedConfig
-from repro_torch.launch.fedround import make_round_engine, stack_trees
+from repro_torch.federated.faults import FaultSchedule
+from repro_torch.launch.fedround import (_make_local_train,
+                                         make_buffer_merge_step,
+                                         make_client_update_step,
+                                         make_round_engine, stack_trees)
 from repro_torch.launch.steps import (make_eval_step, make_greedy_generate,
                                       make_population_eval)
 from repro_torch.metrics import corpus_scores
@@ -57,6 +91,10 @@ _BATCH_KEYS = ("tokens", "labels", "loss_mask", "image", "image_mask",
                "audio", "text_mask")
 # keys an evaluation batch may carry (loss + generation)
 _EVAL_KEYS = ("tokens", "labels", "loss_mask", "image", "audio")
+# the fused round's health values, in the order they ride the round's fetch
+_HEALTH_KEYS = ("n_dropped", "n_forfeited", "n_nonfinite", "clip_rate")
+# the fault operand vectors a cohort's draws become on the device
+_FAULT_KEYS = ("keep", "weight", "scale", "nan")
 
 
 def _mask_decode_bounds(loss_mask: np.ndarray) -> tuple[int, int]:
@@ -138,8 +176,6 @@ class FederatedTrainer:
         if fed_cfg.paged:
             raise NotImplementedError("the paged client store is not "
                                       "ported yet; use resident state")
-        if fed_cfg.faults.active:
-            raise NotImplementedError("fault injection is not ported yet")
         self.device = resolve_device(device)
         self.mcfg = model_cfg
         self.fcfg = fed_cfg
@@ -195,15 +231,46 @@ class FederatedTrainer:
                 for d in client_train])).to(self.device)
             for kk in keys}
         self._round_step = None          # the fused round, built on first use
+        self._local_train = None         # run_round_reference's, lazy
         self._eval_loss = make_eval_step(model_cfg,
                                          lora_scale=self.lora_scale)
         self._gen_cache: dict = {}
         self._pop_eval_cache: dict = {}
         self.rng = np.random.default_rng(seed)
         self.history: list[dict] = []
+        # pipelined rounds: the enqueued round whose record is not fetched
+        self._pending: tuple | None = None
+        # buffered async state
+        self._client_update_step = None
+        self._merge_step = None
+        self._inflight: list[dict] = []   # dispatched updates not retired
+        self._buffer: list[dict] = []     # retired updates awaiting a merge
+        self._async_tick = 0
+        self._global_version = 0          # server merges applied so far
+        # measured per-client local-training seconds (EMA), recorded with
+        # fcfg.measure_delays; the first measurement of each timed path
+        # includes its warm-up and is discarded
+        self.client_step_ema = np.zeros((fed_cfg.num_clients,), np.float64)
+        self._ema_seen = np.zeros((fed_cfg.num_clients,), bool)
+        self._measure_warm: set = set()
+        # stateless per-(round, client) fault draws, and the cumulative
+        # health counters (n_dropped, n_forfeited, n_deferred, n_corrupted,
+        # n_nonfinite, clip_rate_sum, fault_rounds)
+        self.fault_schedule = (FaultSchedule(fed_cfg.faults,
+                                             fed_cfg.num_clients)
+                               if fed_cfg.faults.active else None)
+        self.health: collections.Counter = \
+            self.telemetry.metrics.counter_group("fed.health")
         m = self.telemetry.metrics
         self._h_round = m.histogram("fed.round_seconds")
+        self._h_client_step = m.histogram("fed.client_step_seconds")
         m.gauge_fn("fed.server_round", lambda: float(len(self.history)))
+        m.gauge_fn("fed.async_buffer_fill",
+                   lambda: float(len(self._buffer)))
+        m.gauge_fn("fed.async_inflight", lambda: float(len(self._inflight)))
+        m.gauge_fn("fed.client_step_ema_mean",
+                   lambda: float(self.client_step_ema[self._ema_seen].mean())
+                   if self._ema_seen.any() else 0.0)
 
     # ------------------------------------------------------------ sampling
     def _batch_indices(self, client: ClientState) -> np.ndarray:
@@ -228,17 +295,93 @@ class FederatedTrainer:
         fc = self.fcfg
         return max(int(round(fc.sample_rate * fc.num_clients)), 1)
 
-    def _sample_clients(self) -> list[int]:
-        """Sample one cohort with the reference's numpy call.
-        ``sampling="availability"`` weights clients by measured local-step
-        times; the fused round measures none (in the reference too), so
-        there it is the same uniform draw."""
+    def _prefetch(self, client: ClientState) -> dict:
+        """The reference loop's batches: the fused round's batch indices,
+        gathered on the host and copied once per key."""
+        ix = self._batch_indices(client)
+        return {k: torch.from_numpy(np.asarray(v)[ix]).to(self.device)
+                for k, v in client.data.items() if k in _BATCH_KEYS}
+
+    def _record_step_time(self, clients, seconds: float, *,
+                          path: str | None = None,
+                          only_unseen: bool = False) -> None:
+        """Fold one measured local-training time into the per-client EMA.
+        The reference loop times each client; a cohort call sees only the
+        cohort's wall, so it passes ``only_unseen=True`` and seeds the
+        unmeasured clients without touching measured ones.  The first
+        measurement of each ``path`` (its warm-up) is discarded."""
+        if path is not None and path not in self._measure_warm:
+            self._measure_warm.add(path)
+            return
+        self._h_client_step.observe(seconds)
+        beta = self.fcfg.delay_ema_beta
+        for k in np.atleast_1d(np.asarray(clients, np.int64)):
+            if self._ema_seen[k]:
+                if only_unseen:
+                    continue
+                self.client_step_ema[k] = (beta * self.client_step_ema[k]
+                                           + (1.0 - beta) * seconds)
+            else:
+                self.client_step_ema[k] = seconds
+                self._ema_seen[k] = True
+
+    def derived_async_delays(self) -> tuple:
+        """Async delays from the measured EMAs: a client n× slower than the
+        fastest measured one retires n-1 ticks late; unmeasured clients in
+        a measured pool take the pool median's delay (no measurement at all:
+        every delay 0)."""
+        if not self._ema_seen.any():
+            return (0,) * self.fcfg.num_clients
+        base = float(self.client_step_ema[self._ema_seen].min())
+        delays = np.zeros((self.fcfg.num_clients,), np.int64)
+        if base > 0:
+            ratio = self.client_step_ema[self._ema_seen] / base
+            delays[self._ema_seen] = np.maximum(
+                np.round(ratio).astype(np.int64) - 1, 0)
+            med = float(np.median(self.client_step_ema[self._ema_seen]))
+            delays[~self._ema_seen] = max(int(round(med / base)) - 1, 0)
+        return tuple(int(d) for d in delays)
+
+    def _sample_clients(self, pool: list | None = None,
+                        round_idx: int | None = None) -> list[int]:
+        """Sample one cohort with the reference's numpy calls.  ``pool``
+        restricts the draw (the async tick passes the idle clients).
+        ``sampling="availability"`` weights measured clients by
+        ``(fastest_ema / ema_k)^alpha`` (unmeasured ones 1.0) and, with an
+        active fault schedule, routes around the clients drawn offline for
+        ``round_idx`` unless that leaves fewer than a cohort; until an EMA
+        lands it is the uniform draw, whose stream faults never touch."""
         fc = self.fcfg
         if fc.sampling not in ("uniform", "availability"):
             raise ValueError(f"unknown sampling {fc.sampling!r} (expected "
                              "'uniform' or 'availability')")
-        return sorted(int(k) for k in self.rng.choice(
-            fc.num_clients, self._n_sample, replace=False))
+        n = self._n_sample
+        if (fc.sampling == "availability"
+                and self.fault_schedule is not None):
+            off = self.fault_schedule.offline(
+                self.server.round if round_idx is None else round_idx)
+            if off:
+                src = range(fc.num_clients) if pool is None else pool
+                kept = [int(k) for k in src if int(k) not in off]
+                if len(kept) >= n:
+                    pool = kept
+        ids = None if pool is None else np.asarray(pool, np.int64)
+        if fc.sampling == "availability":
+            seen = self._ema_seen if ids is None else self._ema_seen[ids]
+            if seen.any():
+                ema = (self.client_step_ema if ids is None
+                       else self.client_step_ema[ids])
+                w = np.ones(seen.shape[0], np.float64)
+                base = float(ema[seen].min())
+                if base > 0:
+                    w[seen] = (base / ema[seen]) ** fc.availability_alpha
+                src = np.arange(fc.num_clients) if ids is None else ids
+                return sorted(int(k) for k in self.rng.choice(
+                    src, n, replace=False, p=w / w.sum()))
+        if ids is None:
+            return sorted(int(k) for k in self.rng.choice(
+                fc.num_clients, n, replace=False))
+        return sorted(int(k) for k in self.rng.choice(ids, n, replace=False))
 
     # --------------------------------------------------------------- round
     def _get_round_step(self):
@@ -249,7 +392,8 @@ class FederatedTrainer:
                 r_g=self.lcfg.rank, edit=fc.edit, aggregator=fc.aggregator,
                 hetlora_beta=fc.hetlora_beta,
                 hetlora_prune_gamma=fc.hetlora_prune_gamma,
-                clip=fc.clip_norm or None, trim=fc.trim_frac)
+                clip=fc.clip_norm or None, trim=fc.trim_frac,
+                faults=self.fault_schedule is not None)
         return self._round_step
 
     def _dispatch(self, name: str, fn, *args):
@@ -259,6 +403,26 @@ class FederatedTrainer:
         self.dispatch_count[name] += 1
         with self.telemetry.span(name, cat="dispatch"):
             return fn(*args)
+
+    def _fault_cohort(self, round_idx: int, sampled: list[int]) -> dict:
+        """One cohort's fault draws, with the measured step-time EMAs fed to
+        the deadline check (NaN for unmeasured clients, which the schedule
+        ignores); corruption is counted here, on the host, since the device
+        sees it only where it makes a value non-finite."""
+        with self.telemetry.span("fault_draw", cat="fed",
+                                 round=round_idx, cohort=len(sampled)):
+            ema = np.where(self._ema_seen, self.client_step_ema, np.nan)
+            co = self.fault_schedule.cohort(round_idx, sampled, step_ema=ema)
+            self.health["n_corrupted"] += int(co["n_corrupted"])
+            return co
+
+    def _fault_operand(self, co: dict) -> dict:
+        """The cohort's draws as the round's ``fault`` operand; ``kept``
+        (the rows whose clients were not dropped) is built here from the
+        host's ``keep``, so the device never reports it back."""
+        op = {k: self._to_device(co[k]) for k in _FAULT_KEYS}
+        op["kept"] = self._to_device(np.flatnonzero(co["keep"] > 0))
+        return op
 
     def _build_round_inputs(self) -> tuple[list[int], np.ndarray]:
         with self.telemetry.span("sample_cohort", cat="fed"):
@@ -270,10 +434,10 @@ class FederatedTrainer:
         return sampled, batch_idx
 
     def _to_device(self, arr: np.ndarray) -> torch.Tensor:
-        """Host indices → the device without waiting for it: a copy from
+        """Host arrays → the device without waiting for it: a copy from
         pageable memory synchronises the stream, one from pinned memory
         does not."""
-        t = torch.from_numpy(arr)
+        t = torch.from_numpy(np.ascontiguousarray(arr))
         if self.device.type == "cuda":
             t = t.pin_memory()
         return t.to(self.device, non_blocking=True)
@@ -284,11 +448,15 @@ class FederatedTrainer:
         and the server's adapters move on (no wait for the device)."""
         idx = self._to_device(np.asarray(sampled, np.int64))
         bidx = self._to_device(batch_idx.astype(np.int64))
+        fault_args: tuple = ()
+        if self.fault_schedule is not None:
+            fault_args = (self._fault_operand(
+                self._fault_cohort(self.server.round, sampled)),)
         out = self._dispatch(
             "round_step", self._get_round_step(), self.base_params,
             self.stacked_lora, self.server.global_lora,
             self.server.prev_global, self._ranks_dev, self._sizes_dev,
-            self._stacked_data, idx, bidx)
+            self._stacked_data, idx, bidx, *fault_args)
         self.server.prev_global = out["prev_global"]
         self.server.global_lora = out["global_lora"]
         self.server.round += 1
@@ -296,45 +464,335 @@ class FederatedTrainer:
 
     def _fetch_round_record(self, round_no: int, sampled: list[int],
                             out: dict) -> dict:
-        """The round's one blocking host sync: last losses, edited modules
-        and the post-pruning ranks, packed into one f32 tensor (the integers
-        are small enough to ride exactly) and copied once."""
+        """The round's one blocking host sync: last losses, edited modules,
+        the health values (faults active) and the post-pruning ranks,
+        packed into one f32 tensor (the integers are small enough to ride
+        exactly) and copied once."""
         met = out["metrics"]
         n_s = len(sampled)
         parts = [met["last_loss"].float()]
         if "edited" in met:
             parts.append(met["edited"].float())
+        if "health" in out:
+            parts.append(torch.stack([out["health"][k].float()
+                                      for k in _HEALTH_KEYS]))
         parts.append(out["ranks"].float())
         with self.telemetry.span("metrics_fetch", cat="fed", round=round_no):
             host = torch.cat(parts).cpu().numpy()
-        losses = host[:n_s]
-        edited = host[n_s:2 * n_s] if "edited" in met else None
+        losses, at = host[:n_s], n_s
+        edited = None
+        if "edited" in met:
+            edited, at = host[at:at + n_s], at + n_s
         self.client_ranks = host[-len(self.client_ranks):].astype(np.int32)
         rec = {"round": round_no, "sampled": list(map(int, sampled)),
                "train_loss": float(np.mean(losses)),
                "edited_layers": [] if edited is None
                else [int(e) for e in edited]}
+        if "health" in out:
+            h = {k: float(v) for k, v in zip(_HEALTH_KEYS,
+                                              host[at:at + len(_HEALTH_KEYS)])}
+            rec["health"] = h
+            for k in ("n_dropped", "n_forfeited", "n_nonfinite"):
+                self.health[k] += int(h[k])
+            self.health["clip_rate_sum"] += h["clip_rate"]
+            self.health["fault_rounds"] += 1
         self.history.append(rec)
         return rec
 
     def run_round(self) -> dict:
-        """One communication round: one fused round call, one host sync."""
+        """One communication round: one fused round call, one host sync
+        (a pending pipelined round is drained first)."""
         t0 = time.perf_counter()
         with self.telemetry.span("round", cat="fed", round=self.server.round):
+            self.flush_rounds()
             sampled, batch_idx = self._build_round_inputs()
             out = self._enqueue_round(sampled, batch_idx)
             rec = self._fetch_round_record(self.server.round, sampled, out)
         self._h_round.observe(time.perf_counter() - t0)
         return rec
 
+    def run_round_pipelined(self) -> dict | None:
+        """Build round t's host inputs (the work that overlaps round t-1 on
+        the device), fetch round t-1's record, then enqueue round t.  The
+        record returned is one round stale (``None`` on the first call;
+        ``flush_rounds()`` drains the last)."""
+        t0 = time.perf_counter()
+        with self.telemetry.span("round_pipelined", cat="fed",
+                                 round=self.server.round):
+            sampled, batch_idx = self._build_round_inputs()
+            rec = self.flush_rounds()
+            out = self._enqueue_round(sampled, batch_idx)
+            self._pending = (self.server.round, sampled, out)
+        self._h_round.observe(time.perf_counter() - t0)
+        return rec
+
+    def flush_rounds(self) -> dict | None:
+        """Fetch the pending pipelined round's record (``None`` if none)."""
+        rec = None
+        if self._pending is not None:
+            rec = self._fetch_round_record(*self._pending)
+            self._pending = None
+        return rec
+
     def export_adapters(self) -> dict:
         """Personalized adapters for serving: ``{"client<k>": (CPU adapter
         tree padded to r_g, true rank r_k)}``, from one copy of the
-        stacked state."""
+        stacked state (after draining a pending pipelined round)."""
+        self.flush_rounds()
         host = tree_map(lambda x: x.cpu(), self.stacked_lora)
         return {f"client{k}": (tree_map(lambda x, k=k: x[k], host),
                                int(self.client_ranks[k]))
                 for k in range(self.fcfg.num_clients)}
+
+    # ------------------------------------------------------------ async
+    def _get_client_update_step(self):
+        if self._client_update_step is None:
+            fc = self.fcfg
+            self._client_update_step = make_client_update_step(
+                self.mcfg, self.ocfg, lora_scale=self.lora_scale,
+                r_g=self.lcfg.rank, edit=fc.edit, aggregator=fc.aggregator,
+                hetlora_prune_gamma=fc.hetlora_prune_gamma,
+                faults=self.fault_schedule is not None)
+        return self._client_update_step
+
+    def _get_merge_step(self):
+        if self._merge_step is None:
+            fc = self.fcfg
+            self._merge_step = make_buffer_merge_step(
+                aggregator=fc.aggregator,
+                staleness_decay=fc.staleness_decay,
+                hetlora_beta=fc.hetlora_beta, lora_scale=self.lora_scale,
+                guard=self.fault_schedule is not None)
+        return self._merge_step
+
+    def run_round_async(self) -> dict:
+        """One spanned tick of the buffered asynchronous timeline (see
+        :meth:`_run_round_async_impl`)."""
+        with self.telemetry.span("async_tick", cat="fed",
+                                 tick=self._async_tick):
+            return self._run_round_async_impl()
+
+    def _run_round_async_impl(self) -> dict:
+        """One tick of the buffered asynchronous (FedBuff) timeline:
+
+        1. train a cohort of ``n_sample`` idle clients against the current
+           global (tagged with the server version it saw);
+        2. retire the in-flight updates whose simulated delay
+           (``FederatedConfig.async_delays``, plus ``straggler_ticks`` for a
+           drawn straggler) has elapsed into the buffer;
+        3. while ``M`` (``buffer_size`` or ``n_sample``) updates are
+           buffered, merge the ``M`` oldest with staleness = current
+           version − dispatch version.
+
+        Faults key on the tick: a dropped client's update never reaches the
+        buffer, a straggler's arrives late (``n_deferred``), and the merge
+        guard counts poisoned updates (``n_nonfinite``).  The tick's
+        merged losses, guard counts and ranks come back in one fetch.  With
+        zero delays and ``M = n_sample`` a tick is the synchronous round."""
+        fc = self.fcfg
+        if fc.aggregator not in ("fedbuff", "fedbuff_kernel"):
+            raise ValueError(
+                f"run_round_async needs aggregator 'fedbuff' or "
+                f"'fedbuff_kernel', got {fc.aggregator!r} (synchronous "
+                "strategies cannot weight stale deltas)")
+        delays = fc.async_delays
+        if not delays and fc.measure_delays:
+            delays = self.derived_async_delays()
+        delays = delays or (0,) * fc.num_clients
+        if len(delays) != fc.num_clients:
+            raise ValueError(f"async_delays has {len(delays)} entries for "
+                             f"{fc.num_clients} clients")
+        self.flush_rounds()
+        tick = self._async_tick
+        n_s = self._n_sample
+        rec: dict = {"tick": tick, "sampled": [], "merges": 0,
+                     "staleness": [], "version": self._global_version}
+
+        # ---- 1. train a cohort of idle clients
+        busy = {e["client"] for e in self._inflight}
+        avail = [k for k in range(fc.num_clients) if k not in busy]
+        if len(avail) >= n_s:
+            sampled = self._sample_clients(pool=avail, round_idx=tick)
+            batch_idx = np.stack([self._batch_indices(self.clients[k])
+                                  for k in sampled])
+            co = None
+            fault_args: tuple = ()
+            if self.fault_schedule is not None:
+                co = self._fault_cohort(tick, sampled)
+                fault_args = (self._fault_operand(co),)
+            measure = (fc.measure_delays
+                       and not self._ema_seen[list(sampled)].all())
+            idx = self._to_device(np.asarray(sampled, np.int64))
+            bidx = self._to_device(batch_idx.astype(np.int64))
+            t0 = time.perf_counter()
+            out = self._dispatch(
+                "client_update", self._get_client_update_step(),
+                self.base_params, self.stacked_lora, self.server.global_lora,
+                self.server.prev_global, self._ranks_dev, self._sizes_dev,
+                self._stacked_data, idx, bidx, *fault_args)
+            if measure:
+                # the cohort's wall needs it finished: one sync a tick,
+                # only while a sampled client is unmeasured
+                if self.device.type == "cuda":
+                    torch.cuda.synchronize(self.device)
+                self._record_step_time(sampled, time.perf_counter() - t0,
+                                       path="client_update",
+                                       only_unseen=True)
+            cohort = {"update": out["update"], "ranks": out["update_ranks"],
+                      "sizes": out["update_sizes"],
+                      "loss": out["metrics"]["last_loss"]}
+            for i, k in enumerate(sampled):
+                if co is not None and co["keep"][i] <= 0:
+                    continue           # mid-round dropout: never lands
+                extra = 0 if co is None else int(co["extra_ticks"][i])
+                self._inflight.append({
+                    "client": int(k), "row": i, "cohort": cohort,
+                    "version": self._global_version,
+                    "finish": tick + int(delays[k]) + extra})
+            rec["sampled"] = list(map(int, sampled))
+            if co is not None:
+                self.health["n_dropped"] += int(co["n_dropped"])
+                # async stragglers arrive later, they are not forfeited
+                self.health["n_deferred"] += int(co["n_forfeited"])
+                rec["health"] = {"n_dropped": int(co["n_dropped"]),
+                                 "n_deferred": int(co["n_forfeited"])}
+
+        # ---- 2. retire finished updates into the buffer (arrival order)
+        done = [e for e in self._inflight if e["finish"] <= tick]
+        self._inflight = [e for e in self._inflight if e["finish"] > tick]
+        self._buffer.extend(done)
+
+        # ---- 3. merge M-update batches through the fedbuff registry entry
+        M = fc.buffer_size or n_s
+        merged_losses, merge_health = [], []
+        while len(self._buffer) >= M:
+            batch, self._buffer = self._buffer[:M], self._buffer[M:]
+            c0 = batch[0]["cohort"]
+            if (M == int(c0["ranks"].shape[0])
+                    and all(b["cohort"] is c0 for b in batch)
+                    and [b["row"] for b in batch] == list(range(M))):
+                # one whole cohort in order: its stacked update, unsliced
+                stacked, ranks_b, sizes_b = (c0["update"], c0["ranks"],
+                                             c0["sizes"])
+            else:                           # rows of several cohorts
+                stacked = {n: {m: torch.stack(
+                    [b["cohort"]["update"][n][m][b["row"]] for b in batch])
+                    for m in ("A", "B")} for n in c0["update"]}
+                ranks_b = torch.stack([b["cohort"]["ranks"][b["row"]]
+                                       for b in batch])
+                sizes_b = torch.stack([b["cohort"]["sizes"][b["row"]]
+                                       for b in batch])
+            stal = np.asarray([self._global_version - b["version"]
+                               for b in batch], np.float32)
+            mo = self._dispatch(
+                "buffer_merge", self._get_merge_step(), stacked, ranks_b,
+                sizes_b, self._to_device(stal), self.server.global_lora)
+            self.server.prev_global = mo["prev_global"]
+            self.server.global_lora = mo["global_lora"]
+            if "health" in mo:
+                merge_health.append(mo["health"]["n_nonfinite"])
+            self._global_version += 1
+            self.server.round += 1
+            rec["merges"] += 1
+            rec["staleness"].extend(float(s_) for s_ in stal)
+            merged_losses.extend(b["cohort"]["loss"][b["row"]]
+                                 for b in batch)
+        if merged_losses:
+            n_l, n_h = len(merged_losses), len(merge_health)
+            parts = [torch.stack(merged_losses).float()]
+            if merge_health:
+                parts.append(torch.stack(merge_health).float())
+            parts.append(self._ranks_dev.float())
+            with self.telemetry.span("metrics_fetch", cat="fed", tick=tick):
+                host = torch.cat(parts).cpu().numpy()
+            self.client_ranks = host[-fc.num_clients:].astype(np.int32)
+            rec["train_loss"] = float(np.mean(host[:n_l]))
+            if merge_health:
+                nnf = int(np.sum(host[n_l:n_l + n_h]))
+                self.health["n_nonfinite"] += nnf
+                rec.setdefault("health", {})["n_nonfinite"] = nnf
+        rec["buffer_fill"] = len(self._buffer)
+        self._async_tick += 1
+        self.history.append(rec)
+        return rec
+
+    # -------------------------------------------------------- reference
+    @torch.no_grad()
+    def run_round_reference(self) -> dict:
+        """The host loop the fused round is held against: one local-training
+        call and one blocking read per client, eager self-pruning and
+        editing, one stack and scatter, then aggregation through the
+        registry with an explicit ``prev_global`` snapshot.  With
+        ``measure_delays`` it times each client's local training (the only
+        timeline that measures clients one by one)."""
+        fc = self.fcfg
+        if fc.aggregator == "flora":
+            raise NotImplementedError(
+                "FLoRA's round re-initialises adapters from jax.random; the "
+                "port has no such round yet")
+        sampled = self._sample_clients()
+        r_g = self.lcfg.rank
+        if self._local_train is None:
+            self._local_train = _make_local_train(
+                self.mcfg, self.ocfg, lora_scale=self.lora_scale, r_g=r_g)
+        edited_layers, losses, client_lora = [], [], {}
+        for k in sampled:
+            rank_k = int(self.client_ranks[k])
+            lora0 = truncate_redistribute(self.server.global_lora, rank_k,
+                                          r_g)
+            batches = self._prefetch(self.clients[k])
+            t0 = time.perf_counter()
+            lora1, ls = self._local_train(self.base_params, lora0, rank_k,
+                                          batches)
+            losses.append(float(ls[-1]))       # waits for this client
+            if fc.measure_delays:
+                self._record_step_time(k, time.perf_counter() - t0,
+                                       path="local_train")
+            if fc.aggregator == "hetlora" and fc.hetlora_prune_gamma > 0:
+                pruned = rank_k
+                for entry in lora1.values():
+                    pruned = min(pruned, int(AG.hetlora_self_prune(
+                        entry, rank_k, r_g, fc.hetlora_prune_gamma)))
+                if pruned < rank_k:
+                    rank_k = max(pruned, 1)
+                    self.client_ranks[k] = rank_k
+                    lora1 = mask_lora_params(lora1, rank_k, r_g)
+            if fc.edit.enabled:
+                glob_prev = truncate_redistribute(self.server.prev_global,
+                                                  rank_k, r_g)
+                lora1, diag = edit_lora(lora1, glob_prev, fc.edit)
+                lora1 = mask_lora_params(lora1, rank_k, r_g)
+                edited_layers.append(int(torch.argmax(diag["selected"])))
+            client_lora[k] = lora1
+
+        stacked = stack_trees([client_lora[k] for k in sampled])
+        ks = torch.tensor(sampled, device=self.device)
+        for name, entry in self.stacked_lora.items():
+            for m in ("A", "B"):
+                entry[m].index_copy_(0, ks, stacked[name][m])
+        self._ranks_dev = torch.tensor(self.client_ranks, device=self.device)
+
+        ranks = torch.tensor([int(self.client_ranks[k]) for k in sampled],
+                             dtype=torch.int32, device=self.device)
+        sizes = np.asarray([self.clients[k].size for k in sampled],
+                           np.float32)
+        p = torch.from_numpy(sizes / sizes.sum()).to(self.device)
+        self.server.prev_global = tree_map(torch.clone,
+                                           self.server.global_lora)
+        kw = {}
+        if fc.aggregator in ("fedilora_clip", "fedilora_clip_kernel"):
+            kw["anchor"] = self.server.prev_global
+        global_new, _ = AG.aggregate(
+            fc.aggregator, stacked, ranks, p, hetlora_beta=fc.hetlora_beta,
+            lora_scale=self.lora_scale, clip=fc.clip_norm or None,
+            trim=fc.trim_frac, **kw)
+        self.server.global_lora = global_new
+        self.server.round += 1
+        rec = {"round": self.server.round, "sampled": list(map(int, sampled)),
+               "train_loss": float(np.mean(losses)),
+               "edited_layers": edited_layers}
+        self.history.append(rec)
+        return rec
 
     # ---------------------------------------------------------- evaluation
     def _eval_batch(self, data: dict, n: int = 64) -> dict:

@@ -29,8 +29,17 @@ host per step.
 
 A row whose logits turn non-finite gets a sticky ``fault`` flag and emits
 token 0; only that request completes with ``status="error"``.  Cancelling
-(:meth:`ServingEngine.cancel` / :meth:`~ServingEngine.cancel_slot`) is host
-bookkeeping and launches nothing.  Sampling (:class:`SamplingConfig`)
+(:meth:`ServingEngine.cancel` / :meth:`~ServingEngine.cancel_slot`, with
+``status="cancelled"`` or ``"timeout"``) is host bookkeeping and launches
+nothing.  Cancelled, timed-out and shed requests count under
+``serving.cancelled`` / ``serving.timeout`` / ``serving.shed`` and never
+reach the latency, TTFT or queue-wait histograms.
+
+The engine itself is policy-free FIFO; ``Request`` carries an SLO class,
+a deadline, its submit attempts and whether its length was clamped, which
+the scheduler (``repro_torch.serving.scheduler``) uses and the completion
+records report.  Time comes from ``self.clock`` (``time.perf_counter``
+unless a scheduler injects its own).  Sampling (:class:`SamplingConfig`)
 draws Gumbel noise from a counter-based hash of ``(sample_seed, uid,
 position, token)`` on the device: a request's tokens are reproducible
 wherever and whenever it runs, and ``top_k=1`` is greedy.
@@ -103,7 +112,11 @@ class Request:
     admitted_at: float | None = None
     first_token_at: float | None = None
     slo: str = "batch"                 # "interactive" | "batch"
-    status: str = "ok"                 # ok | error | cancelled
+    deadline_s: float | None = None    # relative SLO; None = class default
+    deadline_at: float | None = None   # absolute, stamped by the scheduler
+    status: str = "ok"                 # ok | error | shed | timeout | cancelled
+    attempts: int = 0                  # submit attempts (retry-with-backoff)
+    degraded: bool = False             # gen_len clamped by the shed policy
 
 
 class ServingEngine:
@@ -228,10 +241,16 @@ class ServingEngine:
         self._h_queue_wait = m.histogram("serving.queue_wait_seconds")
         self._c_tokens = m.counter("serving.generated_tokens")
         self._c_completed = m.counter("serving.completed_requests")
+        # the only places shed, timed-out, cancelled and faulted requests
+        # show up: they never touch the histograms above
+        self._c_shed = m.counter("serving.shed")
+        self._c_timeout = m.counter("serving.timeout")
         self._c_cancelled = m.counter("serving.cancelled")
         self._c_errors = m.counter("serving.request_errors")
         m.gauge_fn("serving.queue_depth", lambda: float(len(self.queue)))
         for cls in SLO_CLASSES:
+            # over the engine queue; an SLOScheduler re-registers these over
+            # its own pending set (the latest registration wins)
             m.gauge_fn(f"serving.queue_depth.{cls}",
                        lambda c=cls: float(sum(1 for r in self.queue
                                                if r.slo == c)))
@@ -428,6 +447,7 @@ class ServingEngine:
         req.status = "error"
         rec = {"uid": req.uid, "adapter_id": req.adapter_id,
                "slo": req.slo, "status": "error", "error": error,
+               "attempts": req.attempts,
                "tokens": np.zeros((0,), np.int32),
                "latency_s": self.clock() - req.submitted_at}
         self._c_errors.inc()
@@ -463,10 +483,15 @@ class ServingEngine:
             req.status = status
             rec = {"uid": req.uid, "adapter_id": req.adapter_id,
                    "slo": req.slo, "status": status,
+                   "attempts": req.attempts,
                    "tokens": gen_rows[i][:req.gen_len].astype(np.int32),
                    "latency_s": now - req.submitted_at,
                    "ttft_s": req.first_token_at - req.submitted_at,
                    "queue_wait_s": req.admitted_at - req.submitted_at}
+            if req.deadline_at is not None:
+                rec["deadline_s"] = req.deadline_at - req.submitted_at
+            if req.degraded:
+                rec["degraded"] = True
             if status == "error":
                 rec["error"] = "non-finite logits during decode"
             out.append(rec)
@@ -488,22 +513,23 @@ class ServingEngine:
         return out
 
     # ------------------------------------------------------------ cancellation
-    def _cancelled(self, req: Request, **tags) -> dict:
-        """Complete ``req`` as cancelled (no tokens)."""
-        req.status = "cancelled"
+    def _cancelled(self, req: Request, status: str, **tags) -> dict:
+        """Complete ``req`` as ``status`` (``"cancelled"`` or ``"timeout"``)
+        with no tokens."""
+        req.status = status
         rec = {"uid": req.uid, "adapter_id": req.adapter_id,
-               "slo": req.slo, "status": "cancelled",
+               "slo": req.slo, "status": status, "attempts": req.attempts,
                "tokens": np.zeros((0,), np.int32),
                "latency_s": self.clock() - req.submitted_at}
-        self._c_cancelled.inc()
+        (self._c_timeout if status == "timeout" else self._c_cancelled).inc()
         self._c_completed.inc()
         self.telemetry.instant("request_cancelled", cat="serving",
-                               uid=req.uid, slo=req.slo, status="cancelled",
+                               uid=req.uid, slo=req.slo, status=status,
                                **tags)
         self.completed.append(rec)
         return rec
 
-    def cancel_slot(self, slot: int) -> dict:
+    def cancel_slot(self, slot: int, *, status: str = "cancelled") -> dict:
         """Cancel the in-flight request in ``slot`` at a step boundary.
         Host bookkeeping only: the device row keeps advancing until
         re-admission rewrites it (rows are independent)."""
@@ -515,17 +541,17 @@ class ServingEngine:
         self._pos_h[slot] = 0
         self._plen_h[slot] = 0
         self._tlen_h[slot] = 0
-        return self._cancelled(req, slot=slot)
+        return self._cancelled(req, status, slot=slot)
 
-    def cancel(self, uid: int) -> dict:
+    def cancel(self, uid: int, *, status: str = "cancelled") -> dict:
         """Cancel a request by uid — queued or in flight."""
         for i, r in enumerate(self.queue):
             if r.uid == uid:
                 del self.queue[i]
-                return self._cancelled(r)
+                return self._cancelled(r, status)
         for s in self.busy_slots:
             if self._requests[s].uid == uid:
-                return self.cancel_slot(s)
+                return self.cancel_slot(s, status=status)
         raise KeyError(f"no queued or in-flight request with uid {uid}")
 
     # ------------------------------------------------------------ driving

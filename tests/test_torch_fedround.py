@@ -29,7 +29,6 @@ from repro.optim import OptimizerConfig  # noqa: E402
 from repro_torch import data as TD  # noqa: E402
 from repro_torch.configs import get_config as t_config  # noqa: E402
 from repro_torch.core.editing import EditConfig as TEdit  # noqa: E402
-from repro_torch.federated import FaultConfig as TFault  # noqa: E402
 from repro_torch.federated import FederatedConfig as TFed  # noqa: E402
 from repro_torch.federated import FederatedTrainer as TTrainer  # noqa: E402
 from repro_torch.interop import load_reference_state  # noqa: E402
@@ -127,9 +126,6 @@ def test_unported_options_raise():
                local_steps=1, batch_size=4)
     with pytest.raises(NotImplementedError):
         TTrainer(*args, TFed(paged=True, **fed), *rest, device="cpu")
-    with pytest.raises(NotImplementedError):
-        TTrainer(*args, TFed(faults=TFault(enabled=True, dropout_rate=0.5),
-                             **fed), *rest, device="cpu")
     with pytest.raises(NotImplementedError):
         TTrainer(*args, TFed(**fed), *rest, device="cpu", mesh=object())
     flora = TTrainer(*args, TFed(aggregator="flora", **fed), *rest,
