@@ -110,13 +110,40 @@ Phases (each raises on failure; the script then exits non-zero):
     phase's faults: one ``dim_agg`` launch a merge, and merges, staleness
     and deferred stragglers as the reference's bookkeeping gives them.
     The walls of pipelined and blocking rounds and of the async ticks are
-    printed as findings.
+    printed as findings;
+12. population — the paged client store on fedbench-100m: with a bank of
+    4 slots at K = 10 (cohorts of 4 evict), 2 rounds, a pipelined round
+    with its flush and a ``fedilora_trimmed_kernel`` round against the
+    same calls on resident state from one initial state (cohorts, ranks
+    and edits equal; losses and adapters within the round tolerances, the
+    largest difference printed), one ``dim_agg`` or ``dim_agg_trimmed``
+    launch a round, and the paged sweep's greedy tokens equal to the
+    resident sweep's; then a hosted population of 10^5 clients aliasing 4
+    synthetic shards, cohort and bank of 8, 3 rounds (round walls, device
+    and host bytes, at most 8 rows resident and 24 clients materialised);
+    then the spill tier (4 host slots): a spilled client reads back from
+    its file as the resident trainer holds it;
+13. flora — 2 FLoRA rounds: the base weights' change equals the dense
+    delta computed in f64 from the clients' adapters within 1e-5
+    relative, losses and ``evaluate_global`` finite, no aggregation kernel
+    launched;
+14. checkpoint — the faults phase's faults under ``run_round_async`` with
+    delays 0-2 and a buffer of 2 on a paged trainer: a save with a cohort
+    in flight is refused, a save after tick 1, 2 more ticks, and a fresh
+    paged trainer loaded from the save runs the same 2 ticks (cohorts,
+    fault draws, health, versions and numpy states equal; losses and
+    adapters within the round tolerances);
+15. eval_ref — ``evaluate_personalized(vmapped=False)`` against the
+    sweep and ``generation_scores(cached=False)`` against the cached
+    decode: tokens equal;
+16. cli — ``python -m repro_torch.launch.train`` on fedbench-100m as a
+    subprocess, then ``AdapterStore.from_checkpoint`` on its checkpoint.
 
 Each path that runs a kernel (ops: ``lora_matmul`` and ``flash_attention``;
-serve and slo: BGMV; train, faults and timelines: ``dim_agg``; the trimmed
-runs: ``dim_agg_trimmed``) is driven with the launch counts set to 0 just
-before it and read just after; a kernel that its path never launched fails
-the run.  It prints a JSON
+serve and slo: BGMV; train, faults, timelines, population and
+checkpoint: ``dim_agg``; the trimmed runs: ``dim_agg_trimmed``) is driven
+with the launch counts set to 0 just before it and read just after; a
+kernel that its path never launched fails the run.  It prints a JSON
 line describing every kernel, the ``nvidia-smi`` line, and last
 ``{"ok": true, "device": {...}}``.  Without a CUDA device, or without the
 rest of the repository beside it, it fails and prints no result.  A full
@@ -128,6 +155,7 @@ wall) goes to ``build/chip_smoke.json``.
 from __future__ import annotations
 
 import json
+import math
 import os
 import subprocess
 import sys
@@ -2300,6 +2328,487 @@ def phase_timelines() -> dict:
     return out
 
 
+# the population phase: the paged client store at K = 10 (a bank of 4
+# slots, so cohorts of 4 evict), the hosted population of 10^5 clients
+# aliasing 4 synthetic shards (cohort and bank of 8), and the spill tier
+PAGED_SLOTS, SPILL_HOST_SLOTS = 4, 4
+POP_K, POP_COHORT, POP_ROUNDS, POP_SHARDS = 100_000, 8, 3, 4
+FLORA_ROUNDS = 2
+# the checkpoint phase's async delays (0-2): drawn so that the cohort of
+# tick 1 retires in its own tick and nothing is in flight when the phase
+# saves after tick 1 (a paged trainer with pinned rows refuses to save, as
+# the reference's does); ticks 2 and 3 run clients of delay 1 and 2
+CHECKPOINT_DELAYS = (0, 0, 2, 2, 1, 1, 2, 0, 2, 0)
+CHECKPOINT_TICKS, CHECKPOINT_SLOTS = 2, 8
+
+
+def _recording(trainer) -> list:
+    """``(name, output)`` of every call ``trainer`` dispatches from now on."""
+    calls, orig = [], trainer._dispatch
+
+    def dispatch(name, fn, *args, **kw):
+        out = orig(name, fn, *args, **kw)
+        calls.append((name, out))
+        return out
+
+    trainer._dispatch = dispatch
+    return calls
+
+
+def _max_diff(a, b) -> float:
+    """Largest |a - b| over two adapter trees (tensors or numpy)."""
+    import torch
+    worst = 0.0
+    for n in b:
+        for m in ("A", "B"):
+            x, y = (torch.as_tensor(t).cpu() for t in (a[n][m], b[n][m]))
+            worst = max(worst, (x - y).abs().max().item())
+    return worst
+
+
+def _clients_diff(a, b) -> float:
+    """Largest |a - b| over every exported client adapter of two trainers
+    (their ranks must be equal)."""
+    ea, eb = a.export_adapters(), b.export_adapters()
+    if {k: r for k, (_, r) in ea.items()} != {k: r for k, (_, r) in
+                                              eb.items()}:
+        raise AssertionError("exported ranks differ")
+    return max(_max_diff(ea[k][0], eb[k][0]) for k in ea)
+
+
+def _same_integers(ra, rb, what: str) -> None:
+    keys = [k for k in ra if k != "train_loss"]
+    if [ra[k] for k in keys] != [rb.get(k) for k in keys]:
+        raise AssertionError(f"{what}: {ra} vs {rb}")
+
+
+def phase_population() -> dict:
+    """Paged equals resident at K = 10 (2 rounds, 1 pipelined round and
+    its flush, 1 trimmed round; then the paged sweep); the hosted
+    population of 10^5 clients; the spill tier."""
+    import shutil
+
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.core.editing import EditConfig
+    from repro_torch.data import SyntheticTaskConfig, make_federated_datasets
+    from repro_torch.federated import FederatedConfig, FederatedTrainer
+    from repro_torch.kernels import dim_agg as DK
+    from repro_torch.optim import OptimizerConfig
+
+    out, total = {}, {"dim_agg": 0, "dim_agg_trimmed": 0}
+
+    def counted(call, key):
+        """Run ``call`` (a round), its wall and its launches of ``key``."""
+        n0 = {k: DK.launches[k] for k in total}
+        t0 = time.perf_counter()
+        rec = call()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        got = {k: DK.launches[k] - n0[k] for k in total}
+        for k in total:
+            total[k] += got[k]
+        return rec, wall, got[key]
+
+    # ---- paged == resident at K = 10, from one initial state
+    DK.reset_launches()
+    runs, base, snap = {}, None, None
+    calls = ("run_round", "run_round", "run_round_pipelined", "flush_rounds")
+    for mode in ("paged", "resident"):
+        kw = ({"paged": True, "store_slots": PAGED_SLOTS} if mode == "paged"
+              else {})
+        tr = fed_setup("fedilora_kernel", base=base, **kw)
+        base = tr.base_params
+        recs, walls = [], []
+        for i, call in enumerate(calls):
+            rec, wall, n = counted(getattr(tr, call), "dim_agg")
+            if n != (0 if call == "flush_rounds" else 1):
+                raise AssertionError(f"{mode} {call}: {n} dim_agg launches")
+            walls.append(wall)
+            if rec is not None:
+                recs.append(rec)
+            if mode == "resident" and i == 1:
+                # the state after 2 rounds, for the spill tier's check
+                snap = {n_: {m: e[m].clone() for m in ("A", "B")}
+                        for n_, e in tr.stacked_lora.items()}
+        trim = fed_setup("fedilora_trimmed_kernel", base=base, trim_frac=0.25,
+                         **kw)
+        rec, wall, n = counted(trim.run_round, "dim_agg_trimmed")
+        if n != 1:
+            raise AssertionError(f"{mode} trimmed round: {n} launches")
+        runs[mode] = {"trainer": tr, "trim": trim, "records": recs,
+                      "trim_record": rec, "walls": walls, "trim_wall": wall}
+    p, r = runs["paged"], runs["resident"]
+    loss_diff = 0.0
+    for ra, rb in zip(p["records"] + [p["trim_record"]],
+                      r["records"] + [r["trim_record"]]):
+        _same_integers(ra, rb, "paged vs resident")
+        loss_diff = max(loss_diff, abs(ra["train_loss"] - rb["train_loss"]))
+    for x, y in ((p["trainer"], r["trainer"]), (p["trim"], r["trim"])):
+        if list(x.client_ranks) != list(y.client_ranks):
+            raise AssertionError("paged vs resident: ranks differ")
+    errs = {"loss": loss_diff,
+            "global": _max_diff(p["trainer"].server.global_lora,
+                                r["trainer"].server.global_lora),
+            "clients": _clients_diff(p["trainer"], r["trainer"]),
+            "trim_global": _max_diff(p["trim"].server.global_lora,
+                                     r["trim"].server.global_lora),
+            "trim_clients": _clients_diff(p["trim"], r["trim"])}
+    gerr = _adapter_err(p["trainer"].server.global_lora,
+                        r["trainer"].server.global_lora)
+    if loss_diff > 1e-5 or not gerr["within_tol"] or \
+            max(errs.values()) > 5e-4:
+        raise AssertionError(f"paged vs resident: {errs}")
+    store = p["trainer"].store
+    out["paged_vs_resident"] = {
+        "records": p["records"], "errors": errs,
+        "paged_walls_s": p["walls"], "resident_walls_s": r["walls"],
+        "trim_walls_s": [p["trim_wall"], r["trim_wall"]],
+        "paging": store.paging_stats, "page_in": int(
+            p["trainer"].dispatch_count["page_in"]),
+        "device_bytes": store.device_bytes(), "host_bytes": store.host_bytes()}
+    print(f"population: paged (bank {PAGED_SLOTS}) == resident at K = 10 "
+          f"over 2 rounds, a pipelined round + flush and a trimmed round: "
+          f"cohorts, ranks and edits equal, largest differences {errs} "
+          f"(0 = bit for bit); paged walls "
+          f"{[round(w, 3) for w in p['walls']]} s vs resident "
+          f"{[round(w, 3) for w in r['walls']]} s; paging "
+          f"{store.paging_stats}", flush=True)
+
+    # ---- the paged sweep against the resident one: the same tokens
+    sweeps = {}
+    for mode, tr in (("paged", p["trainer"]), ("resident", r["trainer"])):
+        rec_calls = _recording(tr)
+        t0 = time.perf_counter()
+        ev = tr.evaluate_personalized(n=4, loss_n=8)
+        wall = time.perf_counter() - t0
+        gens = torch.cat([o["gen"].cpu() for name, o in rec_calls
+                          if name == "population_eval"])[:10]
+        sweeps[mode] = {"eval": ev, "wall_s": wall, "gen": gens,
+                        "calls": sum(n == "population_eval"
+                                     for n, _ in rec_calls)}
+    if not torch.equal(sweeps["paged"]["gen"], sweeps["resident"]["gen"]) \
+            or sweeps["paged"]["calls"] != 3:
+        raise AssertionError(f"paged sweep: tokens differ or "
+                             f"{sweeps['paged']['calls']} tiles")
+    out["sweep"] = {m: {k: v for k, v in s.items() if k != "gen"}
+                    for m, s in sweeps.items()}
+    print(f"population: the paged sweep (3 tiles of {PAGED_SLOTS}) gives "
+          f"the resident sweep's tokens; {sweeps['paged']['eval']} in "
+          f"{sweeps['paged']['wall_s']:.2f} s vs "
+          f"{sweeps['resident']['wall_s']:.2f} s", flush=True)
+
+    # ---- a hosted population of 10^5 clients over 4 shards
+    task = SyntheticTaskConfig(seed=1)
+    pool, gtest = make_federated_datasets(task, POP_SHARDS,
+                                          np.array([24] * POP_SHARDS), seed=1)
+    data = [pool[k % POP_SHARDS] for k in range(POP_K)]
+    t0 = time.perf_counter()
+    big = FederatedTrainer(
+        get_config("fedbench-100m"),
+        FederatedConfig(num_clients=POP_K, sample_rate=POP_COHORT / POP_K,
+                        ranks=tuple(TRAIN_RANKS[k % 10]
+                                    for k in range(POP_K)),
+                        local_steps=10, batch_size=8,
+                        aggregator="fedilora_kernel", edit=EditConfig(),
+                        paged=True, store_slots=POP_COHORT),
+        OptimizerConfig(peak_lr=1e-3, total_steps=POP_ROUNDS * 10),
+        data, data, gtest, base_params=base)
+    build_s = time.perf_counter() - t0
+    walls, recs = [], []
+    for _ in range(POP_ROUNDS):
+        rec, wall, n = counted(big.run_round, "dim_agg")
+        if n != 1 or not math.isfinite(rec["train_loss"]):
+            raise AssertionError(f"population round: {rec}, {n} launches")
+        walls.append(wall)
+        recs.append(rec)
+    st = big.store
+    pop = {"clients": POP_K, "cohort": POP_COHORT, "build_s": build_s,
+           "round_walls_s": walls, "records": recs,
+           "device_bytes": st.device_bytes(), "host_bytes": st.host_bytes(),
+           "peak_resident": st.peak_resident,
+           "materialized": len(st.materialized_ids),
+           "page_in": int(big.dispatch_count["page_in"]),
+           "round_step": int(big.dispatch_count["round_step"]),
+           "paging": st.paging_stats}
+    if pop["peak_resident"] > POP_COHORT or \
+            pop["materialized"] > POP_ROUNDS * POP_COHORT or \
+            pop["round_step"] != POP_ROUNDS:
+        raise AssertionError(f"population of {POP_K}: {pop}")
+    out["population"] = pop
+    print(f"population: K = {POP_K} clients over {POP_SHARDS} shards, "
+          f"cohort and bank {POP_COHORT}: built in {build_s:.2f} s, round "
+          f"walls {[round(w, 3) for w in walls]} s, device bytes "
+          f"{pop['device_bytes']}, host bytes {pop['host_bytes']}, peak "
+          f"resident {pop['peak_resident']}, materialised "
+          f"{pop['materialized']}, page_in {pop['page_in']}, round_step "
+          f"{pop['round_step']}", flush=True)
+    del big, data
+
+    # ---- the spill tier: 2 rounds with 4 host slots
+    spill_dir = os.path.join(ROOT, "build", "chip_smoke_spill")
+    shutil.rmtree(spill_dir, ignore_errors=True)
+    sp = fed_setup("fedilora_kernel", base=base, paged=True,
+                   store_slots=PAGED_SLOTS, store_host_slots=SPILL_HOST_SLOTS,
+                   store_spill_dir=spill_dir)
+    for _ in range(2):
+        counted(sp.run_round, "dim_agg")
+    spilled = sorted(sp.store._spilled)
+    if not spilled:
+        raise AssertionError("the spill tier spilled nothing")
+    k = spilled[0]
+    back = sp.store.host_adapter(k)              # read from its npz file
+    err = _max_diff(back, {n: {m: e[m][k] for m in ("A", "B")}
+                           for n, e in snap.items()})
+    if err > 5e-4 or sp.store.spill_loads != 1:
+        raise AssertionError(f"spilled client {k} read back {err} off")
+    out["spill"] = {"spilled": spilled, "client": k, "max_abs_err": err,
+                    "spills": sp.store.spills,
+                    "files": sorted(os.listdir(spill_dir))}
+    print(f"population: spill tier ({SPILL_HOST_SLOTS} host slots) spilled "
+          f"clients {spilled}; client {k} read back from disk within {err} "
+          "of the resident trainer's", flush=True)
+    out["launches"] = dict(total)
+    out["resident"] = r["trainer"]
+    return out
+
+
+def _site(params, name: str):
+    """The base weight a LoRA spec adapts (``[L, in, out]``)."""
+    sub, rest = name.split(".", 1)
+    node = params["blocks"][sub]
+    for part in rest.split("."):
+        node = node[part]
+    return node
+
+
+def phase_flora(base) -> dict:
+    """FLoRA rounds on fedbench-100m (its own copy of the base weights,
+    which FLoRA changes in place): the base weights' change equals the
+    dense delta computed in f64 from the clients' adapters, losses and the
+    global evaluation finite, no aggregation kernel launched."""
+    import numpy as np
+    import torch
+
+    from repro_torch.kernels import dim_agg as DK
+
+    tr = fed_setup("flora", base={k: _clone_tree(v) for k, v in base.items()})
+    DK.reset_launches()
+    rows = []
+    for t in range(FLORA_ROUNDS):
+        names = [s.name for s in tr.specs]
+        before = {n: _site(tr.base_params, n).clone() for n in names}
+        t0 = time.perf_counter()
+        rec = tr.run_round()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        ks = torch.tensor(rec["sampled"], device=before[names[0]].device)
+        sizes = np.asarray([tr.clients[k].size for k in rec["sampled"]],
+                           np.float64)
+        pk = torch.tensor(sizes / sizes.sum(), dtype=torch.float64,
+                          device=ks.device)
+        rel = 0.0
+        for n in names:
+            e = tr.stacked_lora[n]
+            want = tr.lora_scale * torch.einsum(
+                "k,klor,klri->lio", pk, e["B"][ks].double(),
+                e["A"][ks].double())
+            moved = _site(tr.base_params, n).double() - before[n].double()
+            rel = max(rel, ((moved - want).abs().max()
+                            / want.abs().max()).item())
+        if rel > 1e-5 or not math.isfinite(rec["train_loss"]):
+            raise AssertionError(f"FLoRA round {t}: base change {rel} off "
+                                 f"the f64 delta (relative), {rec}")
+        rows.append({"record": rec, "wall_s": wall, "delta_rel_err": rel})
+    ev = tr.evaluate_global(n=32)
+    if not all(math.isfinite(ev[k]) for k in ("loss", "bleu", "rsum")):
+        raise AssertionError(f"FLoRA evaluate_global: {ev}")
+    if any(DK.launches.values()):
+        raise AssertionError(f"FLoRA launched {dict(DK.launches)}")
+    print(f"flora: {FLORA_ROUNDS} rounds, walls "
+          f"{[round(x['wall_s'], 3) for x in rows]} s, losses "
+          f"{[round(x['record']['train_loss'], 4) for x in rows]}, base "
+          f"change vs the f64 dense delta (relative) "
+          f"{[x['delta_rel_err'] for x in rows]}, evaluate_global {ev}, no "
+          "aggregation kernel launched", flush=True)
+    return {"rounds": rows, "eval_global": ev,
+            "launches": dict(DK.launches)}
+
+
+def _clone_tree(tree):
+    if isinstance(tree, dict):
+        return {k: _clone_tree(v) for k, v in tree.items()}
+    return tree.clone()
+
+
+def _host_state(tr) -> dict:
+    return {"rng": tr.rng.bit_generator.state,
+            "client_rng": [c.rng.bit_generator.state for c in tr.clients],
+            "health": {k: float(v) for k, v in tr.health.items()},
+            "version": tr._global_version, "tick": tr._async_tick,
+            "round": tr.server.round, "ranks": list(map(int, tr.client_ranks))}
+
+
+def phase_checkpoint(base) -> dict:
+    """The faults phase's faults under ``run_round_async`` (delays 0-2, a
+    buffer of 2) on a paged trainer: a save with a cohort in flight is
+    refused; after tick 1 it saves, runs 2 more ticks, and a fresh paged
+    trainer loaded from the save runs the same 2 ticks."""
+    import shutil
+
+    from repro_torch.checkpoint import load_federated, save_federated
+    from repro_torch.federated import FaultConfig
+    from repro_torch.kernels import dim_agg as DK
+
+    kw = dict(faults=FaultConfig(**SMOKE_FAULTS), buffer_size=2,
+              async_delays=CHECKPOINT_DELAYS, paged=True,
+              store_slots=CHECKPOINT_SLOTS)
+    d = os.path.join(ROOT, "build", "chip_smoke_ckpt")
+    shutil.rmtree(d, ignore_errors=True)
+    DK.reset_launches()
+    a = fed_setup("fedbuff_kernel", base=base, **kw)
+    a.run_round_async()
+    pinned = a.store.pinned_ids
+    try:
+        save_federated(d, a)
+    except ValueError:
+        refused = True
+    else:
+        refused = False
+    if not pinned or not refused or os.path.exists(d):
+        raise AssertionError(f"a save with pinned rows {pinned} was not "
+                             "refused")
+    for _ in range(CHECKPOINT_TICKS - 1):
+        a.run_round_async()
+    if a.store.pinned_ids:
+        raise AssertionError(f"pinned at the save: {a.store.pinned_ids}")
+    t0 = time.perf_counter()
+    save_federated(d, a)
+    save_s = time.perf_counter() - t0
+    saved = _host_state(a)
+    n_buffered = len(a._buffer)
+    after_a = [a.run_round_async() for _ in range(CHECKPOINT_TICKS)]
+    b = fed_setup("fedbuff_kernel", base=base, **kw)
+    t0 = time.perf_counter()
+    load_federated(d, b)
+    load_s = time.perf_counter() - t0
+    if _host_state(b) != saved:
+        raise AssertionError("the loaded state differs from the saved one")
+    after_b = [b.run_round_async() for _ in range(CHECKPOINT_TICKS)]
+    loss = 0.0
+    for ra, rb in zip(after_a, after_b):
+        _same_integers(ra, rb, "resumed tick")
+        if "train_loss" in ra:
+            loss = max(loss, abs(ra["train_loss"] - rb["train_loss"]))
+    if _host_state(a) != _host_state(b):
+        raise AssertionError("host state differs after the resumed ticks")
+    errs = {"loss": loss,
+            "global": _max_diff(a.server.global_lora, b.server.global_lora),
+            "clients": _clients_diff(a, b)}
+    # the round tolerances of tests/test_torch_fedround.py: loss 1e-5,
+    # each element within ticks x local steps x lr
+    if loss > 1e-5 or max(errs["global"], errs["clients"]) > \
+            CHECKPOINT_TICKS * 10 * 1e-3:
+        raise AssertionError(f"resumed ticks: {errs}")
+    print(f"checkpoint: paged async with faults, delays "
+          f"{CHECKPOINT_DELAYS}, buffer 2: a save with clients {pinned} in "
+          f"flight refused; saved after tick {CHECKPOINT_TICKS - 1} "
+          f"({n_buffered} buffered) in {save_s:.2f} s, loaded in "
+          f"{load_s:.2f} s; {CHECKPOINT_TICKS} resumed ticks equal in "
+          f"cohorts, fault draws, health, versions and numpy states; "
+          f"largest differences {errs}", flush=True)
+    return {"refused_pins": pinned, "save_s": save_s, "load_s": load_s,
+            "buffered_at_save": n_buffered, "ticks": after_a,
+            "errors": errs, "launches": dict(DK.launches)}
+
+
+def phase_eval_ref(tr) -> dict:
+    """The evaluation's reference arguments on a trained fedbench-100m
+    trainer: the host loop against the population sweep, the full-forward
+    decode against the cached one; tokens equal."""
+    import torch
+
+    calls = _recording(tr)
+    t0 = time.perf_counter()
+    ev = tr.evaluate_personalized(n=4, loss_n=8)
+    sweep_s = time.perf_counter() - t0
+    gen_v = next(o["gen"] for n, o in calls if n == "population_eval").cpu()
+    calls.clear()
+    t0 = time.perf_counter()
+    ev_loop = tr.evaluate_personalized(n=4, loss_n=8, vmapped=False)
+    loop_s = time.perf_counter() - t0
+    gen_l = [o.cpu() for n, o in calls if n == "generate"]
+    same = all(torch.equal(gen_v[k][:g.shape[0]], g)
+               for k, g in enumerate(gen_l)) and len(gen_l) == len(tr.clients)
+    if not same or ev_loop["bleu"] != ev["bleu"] or \
+            ev_loop["rsum"] != ev["rsum"] or \
+            abs(ev_loop["loss"] - ev["loss"]) > 1e-5:
+        raise AssertionError(f"vmapped=False {ev_loop} vs {ev}")
+    calls.clear()
+    g = tr.server.global_lora
+    t0 = time.perf_counter()
+    sc = tr.generation_scores(g, tr.global_test, 4)
+    cached_s = time.perf_counter() - t0
+    tok_c = next(o for n, o in calls if n == "generate").cpu()
+    calls.clear()
+    t0 = time.perf_counter()
+    sc_u = tr.generation_scores(g, tr.global_test, 4, cached=False)
+    uncached_s = time.perf_counter() - t0
+    tok_u = torch.stack([o.argmax(-1).cpu() for n, o in calls
+                         if n == "next_logits"], dim=1)
+    if sc != sc_u or not torch.equal(tok_c, tok_u):
+        raise AssertionError(f"cached=False: {sc_u} vs {sc}")
+    print(f"eval_ref: evaluate_personalized(vmapped=False) == the sweep "
+          f"({ev_loop}; {loop_s:.2f} s vs {sweep_s:.2f} s), "
+          f"generation_scores(cached=False) == cached ({tok_u.shape[1]} "
+          f"tokens x 4 rows; {uncached_s:.2f} s vs {cached_s:.2f} s)",
+          flush=True)
+    return {"eval": ev, "loop_s": loop_s, "sweep_s": sweep_s,
+            "generation": sc, "cached_s": cached_s, "uncached_s": uncached_s,
+            "gen_len": int(tok_u.shape[1])}
+
+
+def phase_cli() -> dict:
+    """``python -m repro_torch.launch.train`` on fedbench-100m as a
+    subprocess (1 round of 2 local steps through ``fedilora_kernel``), then
+    ``AdapterStore.from_checkpoint`` on what it wrote."""
+    import shutil
+
+    from repro_torch.serving import AdapterStore
+
+    d = os.path.join(ROOT, "build", "chip_smoke_cli")
+    shutil.rmtree(d, ignore_errors=True)
+    cmd = [sys.executable, "-m", "repro_torch.launch.train", "--arch",
+           "fedbench-100m", "--rounds", "1", "--local-steps", "2",
+           "--aggregator", "fedilora_kernel", "--checkpoint-dir", d]
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        [SRC] + [p for p in [os.environ.get("PYTHONPATH")] if p]))
+    t0 = time.perf_counter()
+    res = subprocess.run(cmd, cwd=ROOT, env=env, capture_output=True,
+                         text=True, timeout=600)
+    wall = time.perf_counter() - t0
+    if res.returncode:
+        raise AssertionError(f"the CLI exited {res.returncode}: "
+                             f"{res.stderr[-2000:]}")
+    lines = res.stdout.strip().splitlines()
+    rec = json.loads(lines[0])
+    if lines[-1] != f"checkpoint written to {d}" or rec["round"] != 1 or \
+            not math.isfinite(rec["train_loss"]) or "global" not in rec:
+        raise AssertionError(f"the CLI printed {lines}")
+    store = AdapterStore.from_checkpoint(d)
+    want = {f"client{k}": r for k, r in enumerate(TRAIN_RANKS)}
+    if store.ranks != want:
+        raise AssertionError(f"from_checkpoint ranks {store.ranks}")
+    store.acquire("client9")
+    store.release("client9")
+    print(f"cli: python -m repro_torch.launch.train (fedbench-100m, 1 round "
+          f"x 2 steps) in {wall:.2f} s: {lines[0]}; from_checkpoint read "
+          f"{len(store.ranks)} adapters", flush=True)
+    return {"wall_s": wall, "record": rec, "ranks": store.ranks}
+
+
 def main() -> int:
     import torch
 
@@ -2351,6 +2860,12 @@ def main() -> int:
     train_agree = timed("train_agreement", phase_train_agreement)
     faulted = timed("faults", phase_faults)
     timelines = timed("timelines", phase_timelines)
+    population = timed("population", phase_population)
+    resident = population.pop("resident")
+    flora = timed("flora", phase_flora, resident.base_params)
+    ckpt = timed("checkpoint", phase_checkpoint, resident.base_params)
+    eval_ref = timed("eval_ref", phase_eval_ref, resident)
+    cli = timed("cli", phase_cli)
     print("phase wall s: " + ", ".join(f"{k} {v:.1f}"
                                        for k, v in phase_s.items()),
           flush=True)
@@ -2384,11 +2899,14 @@ def main() -> int:
     path_launches = {
         "dim_agg": {"train": trained["launches"]["dim_agg"],
                     "faults": faulted["launches"]["dim_agg"],
-                    "timelines": timelines["launches"]["dim_agg"]},
+                    "timelines": timelines["launches"]["dim_agg"],
+                    "population": population["launches"]["dim_agg"],
+                    "checkpoint": ckpt["launches"]["dim_agg"]},
         "dim_agg_trimmed": {
             "train_agreement": train_agree["fedilora_trimmed_kernel"][
                 "launches"]["dim_agg_trimmed"],
-            "faults": faulted["launches"]["dim_agg_trimmed"]}}
+            "faults": faulted["launches"]["dim_agg_trimmed"],
+            "population": population["launches"]["dim_agg_trimmed"]}}
     for kernel, paths in path_launches.items():
         if not all(paths.values()):
             raise AssertionError(f"{kernel} was not launched on every path "
@@ -2472,8 +2990,10 @@ def main() -> int:
                    "ops": opsr,
                    "serve": served, "agreement": agree, "slo": slo,
                    "train": trained, "train_agreement": train_agree,
-                   "faults": faulted, "timelines": timelines}, f, indent=1,
-                  default=float)
+                   "faults": faulted, "timelines": timelines,
+                   "population": population, "flora": flora,
+                   "checkpoint": ckpt, "eval_ref": eval_ref, "cli": cli},
+                  f, indent=1, default=float)
     print(json.dumps({"kernels": records}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

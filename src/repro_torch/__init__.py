@@ -6,8 +6,11 @@ The port grows slice by slice.  This package holds:
 * the federated FediLoRA round — synthetic multimodal corpora with missing
   modalities, the training forward and loss, AdamW over rank-masked
   adapters, layer-wise editing and the aggregation registry, in one
-  resident-state ``FederatedTrainer``, with dimension-wise aggregation as
-  hand-written CUDA kernels for Hopper (``kernels/csrc/dim_agg.cu``);
+  ``FederatedTrainer`` over resident or paged client state (every round
+  timeline, FLoRA, checkpoints through ``repro_torch.checkpoint``, the
+  CLI ``python -m repro_torch.launch.train``), with dimension-wise
+  aggregation as hand-written CUDA kernels for Hopper
+  (``kernels/csrc/dim_agg.cu``);
 * the multi-tenant adapter-serving path: model configs, the
   dense/prefix-VLM decode stack, chunked prefill, the LRU-paged adapter
   bank and the continuous-batching engine, with the per-row multi-adapter

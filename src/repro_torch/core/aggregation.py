@@ -343,16 +343,22 @@ def aggregate(name: str, stacked: Tree, ranks, p, *,
               staleness_decay: float = 0.5, clip: float | None = None,
               trim: float = 0.0, fallback: Tree | None = None):
     """One server aggregation through :data:`AGGREGATORS`; returns
-    ``(global_lora, base_delta)``."""
+    ``(global_lora, base_delta)``.  The global adapter comes back
+    contiguous: its layout decides how the next round's products round,
+    and a checkpoint restores contiguous tensors, so a resumed run is
+    bit-identical only if the live one is contiguous too."""
     try:
         fn = AGGREGATORS[name]
     except KeyError:
         raise ValueError(f"unknown aggregator {name!r}; have "
                          f"{sorted(AGGREGATORS)}") from None
-    return fn(stacked, ranks, p, hetlora_beta=hetlora_beta,
-              lora_scale=lora_scale, staleness=staleness, anchor=anchor,
-              staleness_decay=staleness_decay, clip=clip, trim=trim,
-              fallback=fallback)
+    glob, delta = fn(stacked, ranks, p, hetlora_beta=hetlora_beta,
+                     lora_scale=lora_scale, staleness=staleness,
+                     anchor=anchor, staleness_decay=staleness_decay,
+                     clip=clip, trim=trim, fallback=fallback)
+    if glob is not None:
+        glob = tree_map(lambda x: x.contiguous(), glob)
+    return glob, delta
 
 
 __all__ = ["AGGREGATORS", "aggregate", "client_update_norms",

@@ -1,7 +1,7 @@
 """Slot residency bookkeeping for host↔device paging — the LRU + pin
-protocol under ``repro_torch.serving.AdapterStore`` (read-only adapter
-bank); the reference package's federated client store uses the same
-protocol with write-back.
+protocol shared by ``repro_torch.serving.AdapterStore`` (read-only
+adapter bank) and ``repro_torch.federated.client_store.ClientStateStore``
+(read-write client bank with write-back).
 
 The pager tracks WHICH id occupies WHICH slot of a fixed-size device bank;
 it never touches device memory itself.  Callers own the actual page-in

@@ -1,5 +1,5 @@
 """Federated fine-tuning (port of ``repro/federated``: the configuration,
-the fault schedule and the resident-state trainer)."""
+the fault schedule, the paged client store and the trainer)."""
 
 from repro_torch.federated.config import FederatedConfig  # noqa: F401
 from repro_torch.federated.faults import FaultConfig, FaultSchedule  # noqa: F401

@@ -1,5 +1,5 @@
 """Federated LoRA training runtime (port of ``repro/federated/runtime.py``:
-the resident-state trainer and its fused round).
+the trainer over resident or paged client state and its fused round).
 
 One communication round (paper Fig. 3): the server redistributes the
 global adapter truncated to each sampled client's rank; each client runs
@@ -46,11 +46,28 @@ corruption per (round, client) from ``federated/faults.py``; the fused
 round and the async tick absorb them on the device and the round's health
 values ride its one fetch (``health`` counts them across rounds).
 
-Not ported yet (each raises ``NotImplementedError`` where it is asked
-for): device meshes, the paged client store and FLoRA's round; the
-evaluation's ``vmapped=False`` / ``cached=False`` arguments do not exist
-here.  The trainer runs on the CUDA device unless ``device="cpu"`` is
-passed.
+``FederatedConfig(paged=True)`` replaces the persistent ``[K, ...]``
+state with ``federated/client_store.py::ClientStateStore``: the device
+holds a cohort-sized bank of client rows (adapters, ranks, sizes, corpus
+shards), a cohort pages in by LRU slot with write-back on eviction, and
+the same fused round runs over the bank with ``idx`` = bank slots (one
+``round_step`` a round, ``page_in`` counted beside it), bit-identical to
+the resident trainer because every per-client computation is row-local.
+Clients materialise lazily through ``_init_lora_fn`` on first use, so a
+population of 10^5 clients costs only the clients it has sampled; the
+async tick keeps each in-flight cohort pinned until it retires.
+
+FLoRA (``aggregator="flora"``) folds the cohort's dense delta into the
+base weights IN PLACE every round and restarts every client, and the
+global adapter, from fresh draws; those draws come through one seam,
+:meth:`FederatedTrainer.flora_reinit`, which a parity test replaces with
+the reference's ``jax.random`` draws.
+
+``evaluate_personalized(vmapped=False)`` and ``generation_scores(
+cached=False)`` are the reference arguments: the per-client host loop,
+and the decode that re-runs the full forward for every token.  Device
+meshes are not ported (``NotImplementedError``).  The trainer runs on the
+CUDA device unless ``device="cpu"`` is passed.
 """
 
 from __future__ import annotations
@@ -70,9 +87,11 @@ from repro_torch.core.lora import (LoRAConfig, init_lora_params,
                                    mask_lora_params, truncate_redistribute)
 from repro_torch.core.tree import tree_map
 from repro_torch.data.synthetic import EOS
+from repro_torch.federated.client_store import ClientStateStore, pad_rows
 from repro_torch.federated.config import FederatedConfig
 from repro_torch.federated.faults import FaultSchedule
 from repro_torch.launch.fedround import (_make_local_train,
+                                         apply_weight_deltas,
                                          make_buffer_merge_step,
                                          make_client_update_step,
                                          make_round_engine, stack_trees)
@@ -95,6 +114,8 @@ _EVAL_KEYS = ("tokens", "labels", "loss_mask", "image", "audio")
 _HEALTH_KEYS = ("n_dropped", "n_forfeited", "n_nonfinite", "clip_rate")
 # the fault operand vectors a cohort's draws become on the device
 _FAULT_KEYS = ("keep", "weight", "scale", "nan")
+# generator streams of FLoRA's fresh draws (``flora_reinit``)
+_FLORA_CLIENT_STREAM, _FLORA_GLOBAL_STREAM = 10 ** 9, 2 * 10 ** 9
 
 
 def _mask_decode_bounds(loss_mask: np.ndarray) -> tuple[int, int]:
@@ -137,15 +158,31 @@ class ServerState:
     round: int = 0
 
 
-@dataclasses.dataclass
 class ClientState:
-    """One client's private data, its size and its numpy generator (its
-    adapter and rank live in the trainer's stacked state)."""
+    """One client's private data, its size and its numpy generator, with
+    read-through views of its rank and adapter, which live in the
+    trainer's stacked state or its client store."""
 
-    data: dict
-    eval_data: dict
-    size: int
-    rng: np.random.Generator
+    def __init__(self, trainer: "FederatedTrainer", index: int, data: dict,
+                 eval_data: dict, size: int, rng: np.random.Generator):
+        self._trainer = trainer
+        self._index = index
+        self.data = data
+        self.eval_data = eval_data
+        self.size = size
+        self.rng = rng
+
+    @property
+    def rank(self) -> int:
+        return int(self._trainer.client_ranks[self._index])
+
+    @property
+    def lora(self) -> Tree:
+        """A copy of the client's current adapter, on the device."""
+        k, tr = self._index, self._trainer
+        if tr.store is not None:
+            return tr.store.client_lora(k)
+        return tree_map(lambda x: x[k].clone(), tr.stacked_lora)
 
 
 def _generator(device: torch.device, seed: int, stream: int
@@ -156,7 +193,8 @@ def _generator(device: torch.device, seed: int, stream: int
 
 
 class FederatedTrainer:
-    """Resident-state federated trainer (see the module docstring).
+    """Federated trainer over resident or paged client state (see the
+    module docstring).
 
     ``base_params``: the frozen base weights as port tensors (``None``:
     ``T.init_params`` from ``seed`` on ``device``).  ``device``: ``None``
@@ -173,9 +211,6 @@ class FederatedTrainer:
         if mesh is not None:
             raise NotImplementedError("the port's trainer runs on one "
                                       "device; round meshes are not ported")
-        if fed_cfg.paged:
-            raise NotImplementedError("the paged client store is not "
-                                      "ported yet; use resident state")
         self.device = resolve_device(device)
         self.mcfg = model_cfg
         self.fcfg = fed_cfg
@@ -199,7 +234,8 @@ class FederatedTrainer:
         self.client_ranks = np.asarray(fed_cfg.ranks, np.int32)  # host mirror
         sizes = np.asarray([d["tokens"].shape[0] for d in client_train],
                            np.float32)
-        self.clients = [ClientState(client_train[k], client_eval[k],
+        self._seed = seed
+        self.clients = [ClientState(self, k, client_train[k], client_eval[k],
                                     int(sizes[k]),
                                     np.random.default_rng(seed + 7 * k + 1))
                         for k in range(fed_cfg.num_clients)]
@@ -211,25 +247,48 @@ class FederatedTrainer:
             raise ValueError(
                 f"batch keys {partial} present in only some client shards; "
                 "the stacked corpus needs uniform keys")
-        # ---- persistent stacked client state [K, ...] on the device
-        self.stacked_lora = stack_trees([
-            init_lora_params(self.specs, self.lcfg,
-                             generator=_generator(self.device, seed, 100 + k),
-                             client_rank=fed_cfg.ranks[k])
-            for k in range(fed_cfg.num_clients)])
-        self._ranks_dev = torch.tensor(self.client_ranks, device=self.device)
-        self._sizes_dev = torch.tensor(sizes, device=self.device)
-        # device-resident training corpus [K, N_max, ...], zero-padded to the
-        # longest shard (batch indices never reach the padding); the round
-        # gathers its minibatches from it on the device
-        n_max = max(d["tokens"].shape[0] for d in client_train)
-        self._stacked_data = {
-            kk: torch.from_numpy(np.stack([
-                np.pad(np.asarray(d[kk]),
-                       [(0, n_max - d[kk].shape[0])]
-                       + [(0, 0)] * (np.asarray(d[kk]).ndim - 1))
-                for d in client_train])).to(self.device)
-            for kk in keys}
+        # client k's initial adapter: one function for the resident stack,
+        # the store's lazy materialisation and a checkpoint's clients that
+        # were never trained
+        self._init_lora_fn = lambda k: init_lora_params(
+            self.specs, self.lcfg,
+            generator=_generator(self.device, seed, 100 + k),
+            client_rank=fed_cfg.ranks[k])
+        if fed_cfg.paged:
+            # ---- host-backed population, a cohort-sized bank on the device
+            slots = fed_cfg.store_slots or self._n_sample
+            if slots < self._n_sample:
+                raise ValueError(
+                    f"store_slots={slots} is smaller than the sampled cohort "
+                    f"({self._n_sample}); the bank must hold a whole cohort")
+            self.store = ClientStateStore(
+                num_clients=fed_cfg.num_clients, slots=slots,
+                init_fn=self._init_lora_fn, ranks=self.client_ranks,
+                sizes=sizes, data=client_train, batch_keys=keys,
+                device=self.device, dispatch_count=self.dispatch_count,
+                host_slots=fed_cfg.store_host_slots,
+                spill_dir=fed_cfg.store_spill_dir, telemetry=self.telemetry)
+            self.stacked_lora = None
+            self._stacked_data = None
+            self._ranks_dev = None
+            self._sizes_dev = None
+        else:
+            # ---- persistent stacked client state [K, ...] on the device
+            self.store = None
+            self.stacked_lora = stack_trees(
+                [self._init_lora_fn(k) for k in range(fed_cfg.num_clients)])
+            self._ranks_dev = torch.tensor(self.client_ranks,
+                                           device=self.device)
+            self._sizes_dev = torch.tensor(sizes, device=self.device)
+            # device-resident training corpus [K, N_max, ...], zero-padded
+            # to the longest shard (batch indices never reach the padding);
+            # the round gathers its minibatches from it on the device
+            n_max = max(d["tokens"].shape[0] for d in client_train)
+            self._stacked_data = {
+                kk: torch.from_numpy(np.stack(
+                    [pad_rows(d[kk], n_max) for d in client_train])).to(
+                        self.device)
+                for kk in keys}
         self._round_step = None          # the fused round, built on first use
         self._local_train = None         # run_round_reference's, lazy
         self._eval_loss = make_eval_step(model_cfg,
@@ -240,6 +299,7 @@ class FederatedTrainer:
         self.history: list[dict] = []
         # pipelined rounds: the enqueued round whose record is not fetched
         self._pending: tuple | None = None
+        self._last_slots = None           # bank slots of the last paged cohort
         # buffered async state
         self._client_update_step = None
         self._merge_step = None
@@ -396,13 +456,31 @@ class FederatedTrainer:
                 faults=self.fault_schedule is not None)
         return self._round_step
 
-    def _dispatch(self, name: str, fn, *args):
+    def _dispatch(self, name: str, fn, *args, **kw):
         """Call ``fn``, tallied in ``dispatch_count`` under ``name`` and
         spanned (the span name is the dispatch-count key).  Kernels run
         asynchronously, so the span measures the host's enqueue."""
         self.dispatch_count[name] += 1
         with self.telemetry.span(name, cat="dispatch"):
-            return fn(*args)
+            return fn(*args, **kw)
+
+    def flora_reinit(self, round_idx: int, sampled: list[int]):
+        """FLoRA's fresh draws for one round: ``(client_lora0, global_new)``
+        — the sampled clients' restart adapters stacked ``[n_s, ...]`` at the
+        global rank (the round masks each to its client's rank) and the
+        next global adapter.  The reference draws them from ``jax.random``
+        (``PRNGKey(1000 * round + k)`` and ``PRNGKey(round + 77)``), which
+        torch cannot reproduce; here they come from seeded torch
+        generators.  This method is the one seam a parity test replaces
+        (``repro_torch.interop.flora_reinit_from_numpy``)."""
+        clients = stack_trees([init_lora_params(
+            self.specs, self.lcfg, generator=_generator(
+                self.device, self._seed,
+                _FLORA_CLIENT_STREAM + 1000 * round_idx + k))
+            for k in sampled])
+        glob = init_lora_params(self.specs, self.lcfg, generator=_generator(
+            self.device, self._seed, _FLORA_GLOBAL_STREAM + round_idx))
+        return clients, glob
 
     def _fault_cohort(self, round_idx: int, sampled: list[int]) -> dict:
         """One cohort's fault draws, with the measured step-time EMAs fed to
@@ -442,32 +520,59 @@ class FederatedTrainer:
             t = t.pin_memory()
         return t.to(self.device, non_blocking=True)
 
+    def _state_operands(self, sampled: list[int]):
+        """``(idx, lora, ranks, sizes, data, slots)`` of a cohort: rows of
+        the resident ``[K, ...]`` state (``slots`` None), or — paged — its
+        bank slots after paging the cohort in (pinned until the caller
+        releases it)."""
+        if self.store is None:
+            return (self._to_device(np.asarray(sampled, np.int64)),
+                    self.stacked_lora, self._ranks_dev, self._sizes_dev,
+                    self._stacked_data, None)
+        st = self.store
+        slots = st.acquire_cohort(sampled)
+        return (self._to_device(slots.astype(np.int64)), st.lora_bank,
+                st.ranks_bank, st.sizes_bank, st.data_bank, slots)
+
     def _enqueue_round(self, sampled: list[int],
                        batch_idx: np.ndarray) -> dict:
-        """Enqueue the fused round; the stacked state is updated in place
-        and the server's adapters move on (no wait for the device)."""
-        idx = self._to_device(np.asarray(sampled, np.int64))
+        """Enqueue the fused round; the stacked state (or the store's bank)
+        is updated in place and the server's adapters move on (no wait for
+        the device).  Paged, the next round's page-in is enqueued behind
+        this round on the same stream."""
+        idx, lora, ranks, sizes, data, slots = self._state_operands(sampled)
         bidx = self._to_device(batch_idx.astype(np.int64))
         fault_args: tuple = ()
         if self.fault_schedule is not None:
             fault_args = (self._fault_operand(
                 self._fault_cohort(self.server.round, sampled)),)
+        kw = {}
+        if self.fcfg.aggregator == "flora":
+            kw["reinit"] = self.flora_reinit(self.server.round, sampled)
         out = self._dispatch(
-            "round_step", self._get_round_step(), self.base_params,
-            self.stacked_lora, self.server.global_lora,
-            self.server.prev_global, self._ranks_dev, self._sizes_dev,
-            self._stacked_data, idx, bidx, *fault_args)
+            "round_step", self._get_round_step(), self.base_params, lora,
+            self.server.global_lora, self.server.prev_global, ranks, sizes,
+            data, idx, bidx, *fault_args, **kw)
+        if slots is not None:
+            self.store.adopt(out["stacked_lora"], out["ranks"])
+            self.store.mark_trained(sampled)
+            self.store.release_cohort(sampled)
         self.server.prev_global = out["prev_global"]
         self.server.global_lora = out["global_lora"]
+        if "base_params" in out:          # FLoRA folded its delta in place
+            self.base_params = out["base_params"]
         self.server.round += 1
+        self._last_slots = slots
         return out
 
     def _fetch_round_record(self, round_no: int, sampled: list[int],
-                            out: dict) -> dict:
+                            out: dict, slots=None) -> dict:
         """The round's one blocking host sync: last losses, edited modules,
         the health values (faults active) and the post-pruning ranks,
         packed into one f32 tensor (the integers are small enough to ride
-        exactly) and copied once."""
+        exactly) and copied once.  ``slots`` (paged) maps the bank's
+        ``ranks[S]`` back onto the sampled clients of the host mirror,
+        which the store shares and so is updated in place."""
         met = out["metrics"]
         n_s = len(sampled)
         parts = [met["last_loss"].float()]
@@ -483,7 +588,12 @@ class FederatedTrainer:
         edited = None
         if "edited" in met:
             edited, at = host[at:at + n_s], at + n_s
-        self.client_ranks = host[-len(self.client_ranks):].astype(np.int32)
+        ranks = host[-out["ranks"].shape[0]:].astype(np.int32)
+        if slots is None:
+            self.client_ranks = ranks
+        else:
+            self.client_ranks[np.asarray(sampled, np.int64)] = \
+                ranks[np.asarray(slots, np.int64)]
         rec = {"round": round_no, "sampled": list(map(int, sampled)),
                "train_loss": float(np.mean(losses)),
                "edited_layers": [] if edited is None
@@ -507,7 +617,8 @@ class FederatedTrainer:
             self.flush_rounds()
             sampled, batch_idx = self._build_round_inputs()
             out = self._enqueue_round(sampled, batch_idx)
-            rec = self._fetch_round_record(self.server.round, sampled, out)
+            rec = self._fetch_round_record(self.server.round, sampled, out,
+                                           self._last_slots)
         self._h_round.observe(time.perf_counter() - t0)
         return rec
 
@@ -522,7 +633,8 @@ class FederatedTrainer:
             sampled, batch_idx = self._build_round_inputs()
             rec = self.flush_rounds()
             out = self._enqueue_round(sampled, batch_idx)
-            self._pending = (self.server.round, sampled, out)
+            self._pending = (self.server.round, sampled, out,
+                             self._last_slots)
         self._h_round.observe(time.perf_counter() - t0)
         return rec
 
@@ -535,10 +647,17 @@ class FederatedTrainer:
         return rec
 
     def export_adapters(self) -> dict:
-        """Personalized adapters for serving: ``{"client<k>": (CPU adapter
-        tree padded to r_g, true rank r_k)}``, from one copy of the
-        stacked state (after draining a pending pipelined round)."""
+        """Personalized adapters for serving: ``{"client<k>": (host adapter
+        tree padded to r_g, true rank r_k)}``, after draining a pending
+        pipelined round: one copy of the stacked state, or — paged — one
+        store flush, then every client from the host tier (no ``[K, ...]``
+        stack is built)."""
         self.flush_rounds()
+        if self.store is not None:
+            self.store.flush()
+            return {f"client{k}": (self.store.host_adapter(k),
+                                   int(self.client_ranks[k]))
+                    for k in range(self.fcfg.num_clients)}
         host = tree_map(lambda x: x.cpu(), self.stacked_lora)
         return {f"client{k}": (tree_map(lambda x, k=k: x[k], host),
                                int(self.client_ranks[k]))
@@ -622,14 +741,17 @@ class FederatedTrainer:
                 fault_args = (self._fault_operand(co),)
             measure = (fc.measure_delays
                        and not self._ema_seen[list(sampled)].all())
-            idx = self._to_device(np.asarray(sampled, np.int64))
+            # paged: the cohort stays pinned until it retires (its bank
+            # rows hold the updated adapters until then)
+            idx, lora, ranks, sizes, data, slots = \
+                self._state_operands(sampled)
             bidx = self._to_device(batch_idx.astype(np.int64))
             t0 = time.perf_counter()
             out = self._dispatch(
                 "client_update", self._get_client_update_step(),
-                self.base_params, self.stacked_lora, self.server.global_lora,
-                self.server.prev_global, self._ranks_dev, self._sizes_dev,
-                self._stacked_data, idx, bidx, *fault_args)
+                self.base_params, lora, self.server.global_lora,
+                self.server.prev_global, ranks, sizes, data, idx, bidx,
+                *fault_args)
             if measure:
                 # the cohort's wall needs it finished: one sync a tick,
                 # only while a sampled client is unmeasured
@@ -638,6 +760,17 @@ class FederatedTrainer:
                 self._record_step_time(sampled, time.perf_counter() - t0,
                                        path="client_update",
                                        only_unseen=True)
+            if slots is not None:
+                dropped = ([] if co is None else
+                           [k for i, k in enumerate(sampled)
+                            if co["keep"][i] <= 0])
+                self.store.adopt(out["stacked_lora"], out["ranks"])
+                # a dropped client was not scattered back: its row is clean
+                # and it retires now
+                self.store.mark_trained([k for k in sampled
+                                         if k not in dropped])
+                if dropped:
+                    self.store.release_cohort(dropped)
             cohort = {"update": out["update"], "ranks": out["update_ranks"],
                       "sizes": out["update_sizes"],
                       "loss": out["metrics"]["last_loss"]}
@@ -661,6 +794,10 @@ class FederatedTrainer:
         done = [e for e in self._inflight if e["finish"] <= tick]
         self._inflight = [e for e in self._inflight if e["finish"] > tick]
         self._buffer.extend(done)
+        if self.store is not None and done:
+            # retirement: the rows become evictable (dirty, so an eviction
+            # captures them)
+            self.store.release_cohort([e["client"] for e in done])
 
         # ---- 3. merge M-update batches through the fedbuff registry entry
         M = fc.buffer_size or n_s
@@ -702,10 +839,14 @@ class FederatedTrainer:
             parts = [torch.stack(merged_losses).float()]
             if merge_health:
                 parts.append(torch.stack(merge_health).float())
-            parts.append(self._ranks_dev.float())
+            if self.store is None:
+                # paged: the bank's ranks are not the [K] mirror, and
+                # fedbuff never prunes, so only the losses come back
+                parts.append(self._ranks_dev.float())
             with self.telemetry.span("metrics_fetch", cat="fed", tick=tick):
                 host = torch.cat(parts).cpu().numpy()
-            self.client_ranks = host[-fc.num_clients:].astype(np.int32)
+            if self.store is None:
+                self.client_ranks = host[-fc.num_clients:].astype(np.int32)
             rec["train_loss"] = float(np.mean(host[:n_l]))
             if merge_health:
                 nnf = int(np.sum(host[n_l:n_l + n_h]))
@@ -721,25 +862,31 @@ class FederatedTrainer:
     def run_round_reference(self) -> dict:
         """The host loop the fused round is held against: one local-training
         call and one blocking read per client, eager self-pruning and
-        editing, one stack and scatter, then aggregation through the
-        registry with an explicit ``prev_global`` snapshot.  With
-        ``measure_delays`` it times each client's local training (the only
-        timeline that measures clients one by one)."""
+        editing, one stack and scatter (paged: ``write_client`` per client),
+        then aggregation through the registry with an explicit
+        ``prev_global`` snapshot.  FLoRA restarts each client from
+        :meth:`flora_reinit`'s draws and folds its delta into the base
+        weights.  With ``measure_delays`` it times each client's local
+        training (the only timeline that measures clients one by one)."""
         fc = self.fcfg
-        if fc.aggregator == "flora":
-            raise NotImplementedError(
-                "FLoRA's round re-initialises adapters from jax.random; the "
-                "port has no such round yet")
+        flora = fc.aggregator == "flora"
         sampled = self._sample_clients()
         r_g = self.lcfg.rank
         if self._local_train is None:
             self._local_train = _make_local_train(
                 self.mcfg, self.ocfg, lora_scale=self.lora_scale, r_g=r_g)
+        reinit = self.flora_reinit(self.server.round, sampled) if flora \
+            else None
         edited_layers, losses, client_lora = [], [], {}
-        for k in sampled:
+        for i, k in enumerate(sampled):
             rank_k = int(self.client_ranks[k])
-            lora0 = truncate_redistribute(self.server.global_lora, rank_k,
-                                          r_g)
+            if flora:       # the base holds the folded delta; start afresh
+                lora0 = mask_lora_params(
+                    {n: {m: e[m][i] for m in ("A", "B")}
+                     for n, e in reinit[0].items()}, rank_k, r_g)
+            else:
+                lora0 = truncate_redistribute(self.server.global_lora,
+                                              rank_k, r_g)
             batches = self._prefetch(self.clients[k])
             t0 = time.perf_counter()
             lora1, ls = self._local_train(self.base_params, lora0, rank_k,
@@ -757,7 +904,7 @@ class FederatedTrainer:
                     rank_k = max(pruned, 1)
                     self.client_ranks[k] = rank_k
                     lora1 = mask_lora_params(lora1, rank_k, r_g)
-            if fc.edit.enabled:
+            if fc.edit.enabled and not flora:
                 glob_prev = truncate_redistribute(self.server.prev_global,
                                                   rank_k, r_g)
                 lora1, diag = edit_lora(lora1, glob_prev, fc.edit)
@@ -766,11 +913,17 @@ class FederatedTrainer:
             client_lora[k] = lora1
 
         stacked = stack_trees([client_lora[k] for k in sampled])
-        ks = torch.tensor(sampled, device=self.device)
-        for name, entry in self.stacked_lora.items():
-            for m in ("A", "B"):
-                entry[m].index_copy_(0, ks, stacked[name][m])
-        self._ranks_dev = torch.tensor(self.client_ranks, device=self.device)
+        if self.store is not None:
+            for k in sampled:
+                self.store.write_client(k, client_lora[k],
+                                        rank=int(self.client_ranks[k]))
+        else:
+            ks = torch.tensor(sampled, device=self.device)
+            for name, entry in self.stacked_lora.items():
+                for m in ("A", "B"):
+                    entry[m].index_copy_(0, ks, stacked[name][m])
+            self._ranks_dev = torch.tensor(self.client_ranks,
+                                           device=self.device)
 
         ranks = torch.tensor([int(self.client_ranks[k]) for k in sampled],
                              dtype=torch.int32, device=self.device)
@@ -782,10 +935,13 @@ class FederatedTrainer:
         kw = {}
         if fc.aggregator in ("fedilora_clip", "fedilora_clip_kernel"):
             kw["anchor"] = self.server.prev_global
-        global_new, _ = AG.aggregate(
+        global_new, base_delta = AG.aggregate(
             fc.aggregator, stacked, ranks, p, hetlora_beta=fc.hetlora_beta,
             lora_scale=self.lora_scale, clip=fc.clip_norm or None,
             trim=fc.trim_frac, **kw)
+        if base_delta is not None:                    # FLoRA
+            apply_weight_deltas(self.base_params, base_delta)
+            global_new = reinit[1]
         self.server.global_lora = global_new
         self.server.round += 1
         rec = {"round": self.server.round, "sampled": list(map(int, sampled)),
@@ -813,14 +969,38 @@ class FederatedTrainer:
         return out
 
     def evaluate_personalized(self, generate: bool = True, n: int = 16,
-                              loss_n: int = 64) -> dict:
+                              loss_n: int = 64, vmapped: bool = True) -> dict:
         """Size-weighted average of every client's evaluation on its own
-        adapter (paper Sec. 2.2), in one population-eval call: client k
-        contributes ``min(loss_n, |shard_k|)`` loss rows and
-        ``min(n, |shard_k|)`` generation rows; shorter shards are zero-padded
-        (zero loss mask, padded generations sliced off before scoring)."""
+        adapter (paper Sec. 2.2).  ``vmapped=True``: one population-eval
+        call over the stacked state (paged: one a tile of ``store_slots``
+        clients, from the flushed host tier); client k contributes
+        ``min(loss_n, |shard_k|)`` loss rows and ``min(n, |shard_k|)``
+        generation rows, shorter shards zero-padded (zero loss mask,
+        padded generations sliced off before scoring).  ``vmapped=False``
+        is the reference's per-client host loop (``eval_loss`` and
+        ``generate`` per client), the same numbers client by client."""
         w = np.asarray([c.size for c in self.clients], np.float64)
         w = w / w.sum()
+        if not vmapped:
+            accs, losses, bleus, rsums = [], [], [], []
+            for c in self.clients:
+                lora_k = c.lora
+                m = self._dispatch("eval_loss", self._eval_loss,
+                                   self.base_params, lora_k,
+                                   self._eval_batch(c.eval_data, loss_n))
+                losses.append(float(m["loss"]))
+                accs.append(float(m["acc"]))
+                if generate:
+                    g = self.generation_scores(lora_k, c.eval_data, n)
+                    bleus.append(g["bleu"])
+                    rsums.append(g["rsum"])
+            out = {"loss": float(np.dot(w, losses)),
+                   "acc": float(np.dot(w, accs))}
+            if generate:
+                out["bleu"] = float(np.dot(w, bleus))
+                out["rsum"] = float(np.dot(w, rsums))
+            return out
+
         shard_rows = [c.eval_data["tokens"].shape[0] for c in self.clients]
         rows = min(max(n, loss_n), max(shard_rows))
         keys = [k for k in _EVAL_KEYS
@@ -829,7 +1009,7 @@ class FederatedTrainer:
                    and any(k in c.eval_data for c in self.clients)]
         if partial:
             raise ValueError(f"eval batch keys {partial} present in only "
-                             "some client shards")
+                             "some client shards; use vmapped=False")
 
         def _pad(x):
             x = np.asarray(x)[:rows]
@@ -844,9 +1024,6 @@ class FederatedTrainer:
             cap_start, gen_len = _mask_decode_bounds(np.concatenate(
                 [np.asarray(c.eval_data["loss_mask"])[:gen_rows[k]]
                  for k, c in enumerate(self.clients)]))
-        batch = {k: torch.from_numpy(np.stack(
-            [_pad(c.eval_data[k]) for c in self.clients])).to(self.device)
-            for k in keys}
         key = (rows, loss_n, n, cap_start, gen_len)
         fn = self._pop_eval_cache.get(key)
         if fn is None:
@@ -855,9 +1032,33 @@ class FederatedTrainer:
                 gen_len=gen_len, loss_rows=min(loss_n, rows),
                 gen_rows=min(n, rows), generate=generate)
             self._pop_eval_cache[key] = fn
-        res = self._dispatch("population_eval", fn, self.base_params,
-                             self.stacked_lora, batch)
-        fetched = {k: v.cpu().numpy() for k, v in res.items()}
+
+        def _sweep(ids, lora):
+            batch = {kk: torch.from_numpy(np.stack(
+                [_pad(self.clients[k].eval_data[kk]) for k in ids])).to(
+                    self.device) for kk in keys}
+            res = self._dispatch("population_eval", fn, self.base_params,
+                                 lora, batch)
+            return {kk: v.cpu().numpy() for kk, v in res.items()}
+
+        K = len(self.clients)
+        if self.store is None:
+            fetched = _sweep(range(K), self.stacked_lora)
+        else:
+            # tiles of at most store_slots clients: the device never holds
+            # more than one bank-sized adapter stack and its eval batch; a
+            # short last tile is padded with its first client, whose rows
+            # are dropped
+            T_ = min(K, self.store.slots)
+            self.store.flush()
+            fetched = {}
+            for t0 in range(0, K, T_):
+                ids = list(range(t0, min(t0 + T_, K)))
+                pad_ids = ids + [ids[0]] * (T_ - len(ids))
+                tile = _sweep(pad_ids, self.store.stack_clients(pad_ids))
+                for kk, v in tile.items():
+                    fetched.setdefault(kk, []).append(v[:len(ids)])
+            fetched = {kk: np.concatenate(v) for kk, v in fetched.items()}
         out = {"loss": float(np.dot(w, fetched["loss"])),
                "acc": float(np.dot(w, fetched["acc"]))}
         if generate:
@@ -874,25 +1075,54 @@ class FederatedTrainer:
             out["rsum"] = float(np.dot(w, rsums))
         return out
 
-    def generation_scores(self, lora, data: dict, n: int = 32) -> dict:
-        """Greedy caption generation with ``lora`` (KV-cached) →
-        Google-BLEU / ROUGE-LSum over the first ``n`` rows of ``data``."""
+    @torch.no_grad()
+    def _next_logits(self, base_params, toks, lora, pos: int, image):
+        """Logits [B, V] at position ``pos`` of a full forward."""
+        logits, _ = T.forward(self.mcfg, base_params, toks, lora=lora,
+                              lora_scale=self.lora_scale, vision=image)
+        return logits[:, pos]
+
+    def generation_scores(self, lora, data: dict, n: int = 32,
+                          cached: bool = True) -> dict:
+        """Greedy caption generation with ``lora`` → Google-BLEU /
+        ROUGE-LSum over the first ``n`` rows of ``data``.  ``cached=True``
+        decodes with the KV cache (one ``generate`` call); ``cached=False``
+        is the reference's O(T²) decode, one full forward per token
+        (``next_logits``), the same tokens."""
         tokens = np.asarray(data["tokens"][:n])
         labels = np.asarray(data["labels"][:n])
         loss_mask = np.asarray(data["loss_mask"][:n])
         cap_start, gen_len = _mask_decode_bounds(loss_mask)
-        key = (tokens.shape[0], cap_start, gen_len)
-        fn = self._gen_cache.get(key)
-        if fn is None:
-            fn = make_greedy_generate(self.mcfg, lora_scale=self.lora_scale,
-                                      cap_start=cap_start, gen_len=gen_len)
-            self._gen_cache[key] = fn
         image = (torch.from_numpy(np.asarray(data["image"][:n])).to(
             self.device) if "image" in data else None)
-        toks = torch.from_numpy(tokens[:, :cap_start + 1]).to(self.device)
-        gen = self._dispatch("generate", fn, self.base_params, lora, toks,
-                             image)
-        return _score_generated(gen.cpu().numpy(), labels, loss_mask)
+        if cached:
+            key = (tokens.shape[0], cap_start, gen_len)
+            fn = self._gen_cache.get(key)
+            if fn is None:
+                fn = make_greedy_generate(
+                    self.mcfg, lora_scale=self.lora_scale,
+                    cap_start=cap_start, gen_len=gen_len)
+                self._gen_cache[key] = fn
+            toks = torch.from_numpy(tokens[:, :cap_start + 1]).to(self.device)
+            gen = self._dispatch("generate", fn, self.base_params, lora, toks,
+                                 image)
+            return _score_generated(gen.cpu().numpy(), labels, loss_mask)
+        toks = np.array(tokens, copy=True)
+        toks[:, cap_start + 1:] = 0
+        toks = torch.from_numpy(toks).to(self.device)
+        cols = []
+        for t in range(gen_len):
+            lg = self._dispatch("next_logits", self._next_logits,
+                                self.base_params, toks, lora, cap_start + t,
+                                image)
+            nxt = lg.argmax(-1)
+            cols.append(nxt)                  # fetched once, below
+            # a window ending at the sequence's end decodes its last token
+            # past the buffer: nothing reads it back
+            if cap_start + 1 + t < toks.shape[1]:
+                toks[:, cap_start + 1 + t] = nxt.to(toks.dtype)
+        gen = torch.stack(cols, dim=1).cpu().numpy()
+        return _score_generated(gen, labels, loss_mask)
 
 
 __all__ = ["ClientState", "FederatedTrainer", "ServerState"]

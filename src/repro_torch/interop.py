@@ -64,20 +64,54 @@ def lora_from_numpy(tree: dict[str, Any], *, device=None) -> dict[str, dict]:
 
 
 def load_reference_state(trainer, *, base_params, global_lora, prev_global,
-                         stacked_lora) -> None:
+                         stacked_lora=None, client_lora=None) -> None:
     """Start a port ``FederatedTrainer`` from a reference trainer's state:
-    its base weights, server adapters (``server.global_lora``,
-    ``server.prev_global``) and stacked client adapters, given as numpy
-    trees (``jax.device_get`` of the reference trainer's attributes).
-    Their init draws come from ``jax.random``, which torch cannot
+    its base weights and server adapters (``server.global_lora``,
+    ``server.prev_global``), given as numpy trees (``jax.device_get`` of
+    the reference trainer's attributes), and its clients' adapters —
+    ``stacked_lora`` (``[K, ...]``) for a resident trainer, or for a paged
+    one ``client_lora``, a mapping ``{k: tree}`` of per-client initial
+    adapters (the reference's ``_init_lora_fn(k)`` as numpy), written into
+    the store's host tier through ``write_client`` (no ``[K, ...]`` stack
+    is built; clients left out keep the port's own lazy init).  The
+    reference's init draws come from ``jax.random``, which torch cannot
     reproduce; everything after the init is the port's own."""
+    if trainer.store is None and (stacked_lora is None
+                                  or client_lora is not None):
+        raise ValueError("a resident trainer takes stacked_lora")
+    if trainer.store is not None and stacked_lora is not None:
+        raise ValueError("a paged trainer takes client_lora (per client), "
+                         "never a [K, ...] stack")
     dev = trainer.device
     trainer.base_params = params_from_numpy(trainer.mcfg, base_params,
                                             device=dev)
     trainer.server.global_lora = lora_from_numpy(global_lora, device=dev)
     trainer.server.prev_global = lora_from_numpy(prev_global, device=dev)
-    trainer.stacked_lora = lora_from_numpy(stacked_lora, device=dev)
+    if trainer.store is None:
+        trainer.stacked_lora = lora_from_numpy(stacked_lora, device=dev)
+    else:
+        for k, tree in (client_lora or {}).items():
+            trainer.store.write_client(int(k), tree)
 
 
-__all__ = ["adapters_from_numpy", "load_reference_state", "lora_from_numpy",
-           "params_from_numpy", "to_torch"]
+def flora_reinit_from_numpy(clients: dict, globals_: dict, *, device=None):
+    """FLoRA's draws in the form of the trainer's ``flora_reinit`` seam,
+    from numpy trees (e.g. the reference's ``init_lora_params(
+    PRNGKey(1000 * round + k), ...)`` and ``init_lora_params(PRNGKey(round
+    + 77), ...)`` through ``jax.device_get``): ``clients[(round, k)]`` and
+    ``globals_[round]``.  Assign the result to ``trainer.flora_reinit``."""
+    device = resolve_device(device)
+
+    def flora_reinit(round_idx: int, sampled: list[int]):
+        trees = [clients[(round_idx, int(k))] for k in sampled]
+        lora0 = {n: {m: to_torch(np.stack([t[n][m] for t in trees]),
+                                 device=device) for m in ("A", "B")}
+                 for n in trees[0]}
+        return lora0, lora_from_numpy(globals_[round_idx], device=device)
+
+    return flora_reinit
+
+
+__all__ = ["adapters_from_numpy", "flora_reinit_from_numpy",
+           "load_reference_state", "lora_from_numpy", "params_from_numpy",
+           "to_torch"]

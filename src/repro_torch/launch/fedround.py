@@ -24,9 +24,16 @@ the cohort's losses, edited-module indices and ranks stay on the device,
 so the round enqueues its work without waiting for the device.  The
 stacked client adapters and ranks are updated IN PLACE (the reference
 returns new buffers from donated ones); the returned dict names the same
-tensors.  FLoRA's round is not ported (its per-round re-init draws from
-``jax.random`` inside the program) and raises ``NotImplementedError``;
-meshes are refused by the trainer.
+tensors.  Meshes are refused by the trainer.
+
+FLoRA (``aggregator="flora"``) takes a trailing ``reinit`` operand, the
+round's fresh draws ``(client_lora0 [n_s, ...], global_new)`` from the
+trainer's ``flora_reinit`` seam (the reference draws them from
+``jax.random`` inside its program): each client restarts from its row
+masked to its rank, editing is off, the registry's ``flora`` entry gives
+the dense delta ``Σ_k p_k·scale·B_k A_k`` per spec (a plain einsum, as in
+the reference), :func:`apply_weight_deltas` folds it into the base
+weights IN PLACE, and ``global_new`` becomes the global adapter.
 
 With ``faults=True`` each step takes a trailing ``fault`` operand built
 from ``repro_torch.federated.faults.FaultSchedule.cohort``: four f32
@@ -129,18 +136,25 @@ def _make_client_phases(cfg: ModelConfig, opt_cfg: OptimizerConfig, *,
                         edit_active: bool, prune_active: bool,
                         hetlora_prune_gamma: float) -> Callable:
     """The per-client half shared by the fused round and the async client
-    update: ``(base_params, global_lora, prev_global, ranks_s, batches) ->
-    (lora1, ranks_s, metrics)``, redistribute → train → prune → edit over
-    the cohort; ``lora1`` is a freshly stacked tree."""
+    update: ``(base_params, global_lora, prev_global, ranks_s, batches,
+    lora0=None) -> (lora1, ranks_s, metrics)``, redistribute → train →
+    prune → edit over the cohort; ``lora1`` is a freshly stacked tree.
+    With ``lora0`` (FLoRA's restart draws, stacked) client ``i`` starts
+    from row ``i`` masked to its rank instead of the global adapter."""
     local_train = _make_local_train(cfg, opt_cfg, lora_scale=lora_scale,
                                     r_g=r_g)
 
     def client_phases(base_params, global_lora, prev_global, ranks_s,
-                      batches):
+                      batches, lora0=None):
         loras, losses = [], []
         for i in range(ranks_s.shape[0]):
-            lora0 = truncate_redistribute(global_lora, ranks_s[i], r_g)
-            lo, ls = local_train(base_params, lora0, ranks_s[i],
+            if lora0 is None:
+                start = truncate_redistribute(global_lora, ranks_s[i], r_g)
+            else:
+                start = mask_lora_params(
+                    {n: {m: e[m][i] for m in ("A", "B")}
+                     for n, e in lora0.items()}, ranks_s[i], r_g)
+            lo, ls = local_train(base_params, start, ranks_s[i],
                                  {k: v[i] for k, v in batches.items()})
             loras.append(lo)
             losses.append(ls)
@@ -237,31 +251,34 @@ def make_round_engine(cfg: ModelConfig, opt_cfg: OptimizerConfig, *,
       ``n_nonfinite`` and ``clip_rate`` (f32 scalars on the device).
 
     With ``faults=False`` the signature and the work are the fault-free
-    round's."""
-    if aggregator == "flora":
-        raise NotImplementedError(
-            "FLoRA's round re-initialises adapters from jax.random inside "
-            "the program; the port has no such round yet")
+    round's.  FLoRA adds the keyword operand ``reinit`` (module docstring)
+    and the output key ``base_params`` (the input tree, updated in
+    place)."""
     if aggregator not in AG.AGGREGATORS:
         raise ValueError(f"unknown aggregator {aggregator!r}; have "
                          f"{sorted(AG.AGGREGATORS)}")
     edit = edit or EditConfig()
+    flora = aggregator == "flora"
     client_phases = _make_client_phases(
         cfg, opt_cfg, lora_scale=lora_scale, r_g=r_g, edit=edit,
-        edit_active=edit.enabled,
+        edit_active=edit.enabled and not flora,
         prune_active=aggregator == "hetlora" and hetlora_prune_gamma > 0,
         hetlora_prune_gamma=hetlora_prune_gamma)
 
     @torch.no_grad()
     def round_step(base_params, stacked_lora, global_lora, prev_global,
-                   ranks, sizes, data, idx, batch_idx, fault=None):
+                   ranks, sizes, data, idx, batch_idx, fault=None, *,
+                   reinit=None):
+        if flora and reinit is None:
+            raise ValueError("FLoRA's round needs its reinit draws")
         ranks_s = ranks[idx]
         sizes_s = sizes[idx]
         # device-side batch gather: [n_s, steps, B, ...]
         batches = {k: v[idx[:, None, None], batch_idx]
                    for k, v in data.items()}
-        lora1, ranks_s, metrics = client_phases(base_params, global_lora,
-                                                prev_global, ranks_s, batches)
+        lora1, ranks_s, metrics = client_phases(
+            base_params, global_lora, prev_global, ranks_s, batches,
+            lora0=reinit[0] if flora else None)
 
         agg_lora, kw, health, kept = lora1, {}, None, None
         if aggregator in ("fedilora_clip", "fedilora_clip_kernel"):
@@ -288,14 +305,17 @@ def make_round_engine(cfg: ModelConfig, opt_cfg: OptimizerConfig, *,
                       "n_nonfinite": (alive * (1.0 - fin)).sum(),
                       "clip_rate": clip_rate}
         p = sizes_s / torch.clamp(sizes_s.sum(), min=1e-12)
-        global_new, _ = AG.aggregate(
+        global_new, base_delta = AG.aggregate(
             aggregator, agg_lora, ranks_s, p, hetlora_beta=hetlora_beta,
             lora_scale=lora_scale, clip=clip, trim=trim, **kw)
 
         _scatter(stacked_lora, ranks, idx, lora1, ranks_s, kept)
         out = {"stacked_lora": stacked_lora, "ranks": ranks,
-               "prev_global": global_lora, "global_lora": global_new,
-               "metrics": metrics}
+               "prev_global": global_lora, "metrics": metrics}
+        if base_delta is not None:                      # FLoRA
+            out["base_params"] = apply_weight_deltas(base_params, base_delta)
+            global_new = reinit[1]
+        out["global_lora"] = global_new
         if health is not None:
             out["health"] = health
         return out
@@ -399,5 +419,23 @@ def make_buffer_merge_step(*, aggregator: str = "fedbuff",
     return merge_step
 
 
-__all__ = ["make_buffer_merge_step", "make_client_update_step",
-           "make_round_engine", "stack_trees"]
+def apply_weight_deltas(params, deltas: dict):
+    """Fold FLoRA's dense deltas ``{spec: [L, out, in]}`` into the base
+    weights (``[L, in, out]``) IN PLACE; returns ``params``."""
+    for name, delta in deltas.items():
+        if name.startswith("enc."):
+            node = params["encoder"]["blocks"]["s0"]
+            path = name.split(".")[1:]
+        else:
+            sub, rest = name.split(".", 1)
+            node = params["blocks"][sub]
+            path = rest.split(".")
+        for p in path[:-1]:
+            node = node[p]
+        w = node[path[-1]]
+        w.add_(delta.transpose(-1, -2).to(w.dtype))
+    return params
+
+
+__all__ = ["apply_weight_deltas", "make_buffer_merge_step",
+           "make_client_update_step", "make_round_engine", "stack_trees"]

@@ -228,7 +228,9 @@ class AdapterStore:
                      dispatch_count=None,
                      telemetry: Telemetry | None = None) -> "AdapterStore":
         """Register every personalized client adapter of a live
-        ``FederatedTrainer`` (ids ``"client0"``, ``"client1"``, ...)."""
+        ``FederatedTrainer`` (ids ``"client0"``, ``"client1"``, ...),
+        read through its ``export_adapters`` (a paged trainer's from its
+        host tier)."""
         adapters = trainer.export_adapters()
         store = cls(slots=slots or len(adapters), rank=trainer.lcfg.rank,
                     device=device, dispatch_count=dispatch_count,
@@ -242,8 +244,8 @@ class AdapterStore:
                         device=None, dispatch_count=None,
                         telemetry: Telemetry | None = None) -> "AdapterStore":
         """Register the per-client adapters (ids ``"client{k}"``) of a
-        reference ``save_federated`` checkpoint directory; a paged
-        checkpoint carries only its materialised clients."""
+        ``save_federated`` checkpoint directory written by either package;
+        a paged checkpoint carries only its materialised clients."""
         from repro_torch.checkpoint import load_pytree
 
         with open(os.path.join(dirpath, "meta.json")) as f:

@@ -118,20 +118,27 @@ def test_evaluation_matches_reference():
 
 
 def test_unported_options_raise():
+    """Only the round mesh is still refused; the paged store and FLoRA's
+    round, which raised until they were ported, now run."""
     clients, gtest = TD.make_federated_datasets(TD.SyntheticTaskConfig(), 3,
                                                 SIZES)
     args = (t_config("fedbench-tiny"),)
     rest = (TOpt(), clients, clients, gtest)
     fed = dict(num_clients=3, sample_rate=1.0, ranks=(4, 8, 16),
                local_steps=1, batch_size=4)
-    with pytest.raises(NotImplementedError):
-        TTrainer(*args, TFed(paged=True, **fed), *rest, device="cpu")
+    paged = TTrainer(*args, TFed(paged=True, **fed), *rest, device="cpu")
+    rec = paged.run_round()
+    assert rec["sampled"] == [0, 1, 2] and paged.store.peak_resident == 3
+    assert paged.dispatch_count["round_step"] == 1
     with pytest.raises(NotImplementedError):
         TTrainer(*args, TFed(**fed), *rest, device="cpu", mesh=object())
     flora = TTrainer(*args, TFed(aggregator="flora", **fed), *rest,
                      device="cpu")
-    with pytest.raises(NotImplementedError):
-        flora.run_round()
+    wq = flora.base_params["blocks"]["s0"]["attn"]["wq"].clone()
+    rec = flora.run_round()
+    assert np.isfinite(rec["train_loss"]) and rec["edited_layers"] == []
+    assert not torch.equal(flora.base_params["blocks"]["s0"]["attn"]["wq"],
+                           wq)
     bogus = TTrainer(*args, TFed(aggregator="nope", **fed), *rest,
                      device="cpu")
     with pytest.raises(ValueError, match="unknown aggregator"):
