@@ -19,8 +19,11 @@ Phases (each raises on failure; the script then exits non-zero):
 3. kernels — each kernel against its plain PyTorch version on the card at
    its path's shapes, with the stated tolerances, and timed with CUDA
    events (kernel, plain version, library yardstick) beside the card's
-   bound for the same work: the BGMV kernels at the serving shapes (and
-   every compiled BGMV instance at small ragged shapes), the
+   bound for the same work: the BGMV kernels at the serving shapes, at
+   the families phase's LoRA sites (``FAMILY_BGMV``: Mamba's ``in_proj``
+   / ``out_proj``, Jamba's ``wq`` / ``wv``, DeepSeek-V2's ``wuq`` at
+   decode and at a prefill chunk, held to ``_hold``'s limits), and every
+   compiled BGMV instance at small ragged shapes, the
    ``dim_agg`` kernels at the round's leaves on fedbench-100m and at the
    JAX package's benchmark shape ``K10_L64_r32_n4096`` in both layouts
    (with whether each ``dim_agg`` output equals its plain version bit for
@@ -137,10 +140,25 @@ Phases (each raises on failure; the script then exits non-zero):
     sweep and ``generation_scores(cached=False)`` against the cached
     decode: tokens equal;
 16. cli — ``python -m repro_torch.launch.train`` on fedbench-100m as a
-    subprocess, then ``AdapterStore.from_checkpoint`` on its checkpoint.
+    subprocess, then ``AdapterStore.from_checkpoint`` on its checkpoint;
+17. families — the Mamba-2, hybrid Jamba and MLA + MoE stacks at their
+    published widths in bf16 (mamba2-130m whole; jamba-v0.1-52b cut to
+    one pattern period of 8 layers, 13.3 B parameters; deepseek-v2-236b
+    cut to 2 layers, 9 B parameters; the cuts are printed and recorded):
+    24 requests of 6 tenants through a 4-slot bank with
+    ``lora_backend="grouped"``, streamed prefill on the Mamba stacks and
+    chunks of 32 on DeepSeek-V2; every request completes, cold tenants
+    page in, and BGMV runs once a banked LoRA site a block for every
+    serve/prefill call (2 a Mamba or attention sublayer, 1 an MLA one,
+    whose ``wkv_b`` folds); a short profiled run (device busy share); then
+    in f32 at an MoE capacity factor of max(8, experts / top-k), at which
+    no pick drops (the bf16 weights freed first):
+    ``decode_step`` streamed with an adapter against ``forward`` at every
+    prompt position, past the SSD chunk on the Mamba stacks, within
+    ``FAMILY_DECODE_ATOL``, and grouped == gather greedy tokens.
 
 Each path that runs a kernel (ops: ``lora_matmul`` and ``flash_attention``;
-serve and slo: BGMV; train, faults, timelines, population and
+serve, slo and families: BGMV; train, faults, timelines, population and
 checkpoint: ``dim_agg``; the trimmed runs: ``dim_agg_trimmed``) is driven
 with the launch counts set to 0 just before it and read just after; a
 kernel that its path never launched fails the run.  It prints a JSON
@@ -183,6 +201,17 @@ KERNEL_SOURCES = ("grouped_lora_matmul", "dim_agg", "lora_matmul",
 # stages by plain loads, and ranks go up to 128
 WIDTH_BGMV = [(13, 200, 150, 8), (7, 96, 40, 128), (40, 896, 896, 64),
               (100, 200, 150, 24), (130, 152, 96, 40), (70, 896, 896, 128)]
+# BGMV at the LoRA sites the families phase serves: (site, M, K, N), M = 16
+# slots at decode and 16 x 32 at DeepSeek-V2's chunked prefill; bf16 x/W
+# over the serve path's f32 bank (G 8, r 64), held to ``_hold``'s limits
+FAMILY_BGMV = [("mamba2-130m.in_proj", 16, 768, 3352),
+               ("mamba2-130m.out_proj", 16, 1536, 768),
+               ("jamba-v0.1-52b.in_proj", 16, 4096, 16768),
+               ("jamba-v0.1-52b.out_proj", 16, 8192, 4096),
+               ("jamba-v0.1-52b.wq", 16, 4096, 4096),
+               ("jamba-v0.1-52b.wv", 16, 4096, 1024),
+               ("deepseek-v2-236b.wuq", 16, 1536, 24576),
+               ("deepseek-v2-236b.wuq.prefill", 512, 1536, 24576)]
 
 # the round's stacked leaves on fedbench-100m (K = 4 sampled clients,
 # 12 layers, r_g = 32): (name, [K, L, P, Q], rank axis), then the JAX
@@ -383,6 +412,8 @@ def phase_kernels(dev_name: str) -> dict:
                   f"bound {cases[-1]['bound_ms']:.4f} ms "
                   f"({cases[-1]['bound_by']}, "
                   f"{cases[-1]['pct_of_bound']:.1f} %)", flush=True)
+    family = [_family_bgmv_case(gen, site, M, K, N, G, r, scale, bw,
+                                peak_bf16) for site, M, K, N in FAMILY_BGMV]
     # every compiled instance (pairing x tiling) at small ragged shapes, with
     # indices outside [0, G) that the kernels clamp
     widths = []
@@ -412,7 +443,50 @@ def phase_kernels(dev_name: str) -> dict:
     print(f"kernel widths: {len(widths)} BGMV instances and shapes within "
           f"their limits, max err "
           f"{max(c['max_abs_err'] for c in widths):.3e}", flush=True)
-    return {"cases": cases, "widths": widths}
+    return {"cases": cases, "family_cases": family, "widths": widths}
+
+
+def _family_bgmv_case(gen, site: str, M: int, K: int, N: int, G: int, r: int,
+                      scale: float, bw: float, peak: float) -> dict:
+    """One BGMV call at a families-phase site (bf16 x/W, f32 bank) against
+    its plain version within ``_hold``'s limits, then timed beside the
+    plain version, ``torch.matmul(x, W)`` and the bound."""
+    import torch
+
+    from repro_torch.kernels import grouped_lora_matmul as glm
+    from repro_torch.kernels.ref import grouped_lora_matmul_ref
+
+    n_sets = max(2, int(120e6 // (K * N * 2 + G * r * (K + N) * 4)))
+    sets = [((torch.randn(K, N, generator=gen, device="cuda")
+              * K ** -0.5).to(torch.bfloat16),
+             torch.randn(G, r, K, generator=gen, device="cuda") * K ** -0.5,
+             torch.randn(G, N, r, generator=gen, device="cuda") * r ** -0.5)
+            for _ in range(n_sets)]
+    x = torch.randn(M, K, generator=gen, device="cuda").to(torch.bfloat16)
+    idx = (torch.arange(M, device="cuda", dtype=torch.int32) * 5) % 6
+    w, a, b = sets[0]
+    y = glm.grouped_lora_matmul_cuda(x, w, a, b, idx, scale=scale)
+    err = _hold(f"grouped_lora_matmul {site} {M}x{K}x{N}", y,
+                grouped_lora_matmul_ref(x, w, a, b, idx, scale=scale))
+    kernel_ms = cuda_time_ms(lambda w, a, b: glm.grouped_lora_matmul_cuda(
+        x, w, a, b, idx, scale=scale), sets)
+    plain_ms = cuda_time_ms(lambda w, a, b: grouped_lora_matmul_ref(
+        x, w, a, b, idx, scale=scale), sets)
+    library_ms = cuda_time_ms(lambda w, a, b: torch.matmul(x, w), sets)
+    n_adapters = len(set(idx.tolist()))
+    nbytes = (K * N * 2 + M * K * 2 + M * N * 2
+              + n_adapters * r * (K + N) * 4 + M * 4)
+    ops = 2 * M * K * N + 2 * M * r * (K + N)
+    case = {"site": site, "M": M, "K": K, "N": N, "G": G, "r": r,
+            "x_dtype": "bfloat16", "bank_dtype": "float32",
+            "max_abs_err": err, "ms": kernel_ms, "plain_ms": plain_ms,
+            "library_ms": library_ms, **_bound(nbytes, ops, bw, peak)}
+    case["pct_of_bound"] = 100 * case["bound_ms"] / kernel_ms
+    print(f"kernel grouped_lora_matmul {site} M={M} K={K} N={N}: err "
+          f"{err:.3e} kernel {kernel_ms:.4f} ms plain {plain_ms:.4f} ms "
+          f"matmul {library_ms:.4f} ms bound {case['bound_ms']:.4f} ms "
+          f"({case['bound_by']}, {case['pct_of_bound']:.1f} %)", flush=True)
+    return case
 
 
 def _offset_view(t, offset: int = 1):
@@ -2809,6 +2883,238 @@ def phase_cli() -> dict:
     return {"wall_s": wall, "record": rec, "ranks": store.ranks}
 
 
+# the families phase: (config, layers kept — None keeps the published
+# depth —, prefill chunk — None streams —, layers of the f32 decode ≡
+# forward check and of the f32 grouped-vs-gather serve, its batch and its
+# prompt length).  Mamba prompts pass chunk_size (256), so the SSD crosses
+# a chunk boundary.
+FAMILIES = [("mamba2-130m", None, None, None, 2, 300),
+            ("jamba-v0.1-52b", 8, None, 8, 2, 300),
+            ("deepseek-v2-236b", 2, 32, 1, 2, 48)]
+FAMILY_TENANTS, FAMILY_BANK, FAMILY_REQUESTS = 6, 4, 24
+# streamed decode against the full forward in f32 (TF32 off), logits.
+# The adapter runs at the engine's LoRA scale (alpha 16 over rank 64):
+# at 2.0, Mamba's dt grows to several units, the SSD's segment sums
+# (differences of cumulative sums of dt·A over a 256-position chunk) lose
+# digits to cancellation in f32, and mamba2-130m's decode and forward part
+# by 2.7e-3 on an H100 (the reference's arithmetic, which the port keeps)
+FAMILY_LORA_SCALE = 16.0 / 64
+FAMILY_DECODE_ATOL = 1e-3
+
+
+def _family_cfg(name: str, layers, no_drop: bool = False):
+    """``name``'s published config, cut to ``layers`` (a multiple of its
+    pattern).  ``no_drop`` (the decode ≡ forward check) sets the MoE
+    capacity factor to max(8, E/K): 8 as the reference's
+    ``tests/test_decode.py``, and E/K where that is larger, at which an
+    expert takes every routed token (C >= T), so the forward drops no pick
+    that the decode keeps.  DeepSeek-V2 needs it: at 8, its 160 experts
+    top-6 take C = 15 of a 48-token prompt, and a random router sends
+    more to one expert."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    cfg = get_config(name)
+    if layers is not None:
+        cfg = dataclasses.replace(cfg, num_layers=layers)
+    if no_drop and cfg.moe is not None:
+        mo = cfg.moe
+        cfg = dataclasses.replace(cfg, moe=dataclasses.replace(
+            mo, capacity_factor=max(8.0, mo.num_experts
+                                    / mo.experts_per_token)))
+    return cfg
+
+
+def _bgmv_sites(cfg) -> int:
+    """Banked BGMV sites a block: every LoRA site but MLA's ``wkv_b``,
+    which folds per bank entry."""
+    from repro_torch.models.transformer import lora_specs
+    return sum(1 for s in lora_specs(cfg) if not s.name.endswith(".wkv_b"))
+
+
+def family_requests(cfg, rng, n: int, *, gen=(8, 25)):
+    from repro_torch.serving import Request
+    return [Request(adapter_id=f"tenant{int(rng.integers(0, FAMILY_TENANTS))}",
+                    prompt_tokens=rng.integers(0, cfg.vocab_size,
+                                               size=int(rng.integers(8, 41))),
+                    gen_len=int(rng.integers(*gen))) for _ in range(n)]
+
+
+def family_engine(cfg, params, adapters, *, backend: str, prefill_chunk):
+    from repro_torch.serving import AdapterStore, ServingEngine
+    store = AdapterStore(slots=FAMILY_BANK, rank=max(RANKS))
+    for tid, (lora, rank) in adapters.items():
+        store.register(tid, lora, rank)
+    return ServingEngine(cfg, params, store, lora_scale=FAMILY_LORA_SCALE,
+                         max_slots=16, max_prompt=48, max_gen=24,
+                         prefill_chunk=prefill_chunk, lora_backend=backend)
+
+
+def _family_tokens(cfg, params, adapters, reqs, backend: str, chunk) -> dict:
+    eng = family_engine(cfg, params, adapters, backend=backend,
+                        prefill_chunk=chunk)
+    return {d["uid"]: d["tokens"].tolist() for d in eng.run(reqs)}
+
+
+def _decode_vs_forward(cfg, params, lora, B: int, S: int, seed: int) -> float:
+    """Largest |logit| difference between ``decode_step`` streamed over S
+    positions and one ``forward``, with one adapter."""
+    import numpy as np
+    import torch
+
+    from repro_torch.models.transformer import (decode_step, forward,
+                                                init_cache)
+    toks = torch.from_numpy(np.random.default_rng(seed).integers(
+        0, cfg.vocab_size, (B, S))).cuda()
+    full, _ = forward(cfg, params, toks, lora=lora,
+                      lora_scale=FAMILY_LORA_SCALE)
+    cache = init_cache(cfg, params, B, S)
+    errs = []
+    for t in range(S):
+        lg, cache = decode_step(cfg, params, cache, toks[:, t], t, lora=lora,
+                                lora_scale=FAMILY_LORA_SCALE)
+        errs.append((lg - full[:, t].float()).abs().max())
+    return torch.stack(errs).max().item()
+
+
+def phase_families() -> dict:
+    """Serve the Mamba-2, hybrid Jamba and MLA + MoE stacks at their
+    published widths in bf16 (``FAMILIES``: mamba2-130m whole, Jamba cut to
+    one pattern period of 8 layers, DeepSeek-V2 to 2 layers) through
+    ``lora_backend="grouped"``: 24 requests of 6 tenants through a 4-slot
+    bank (cold tenants page in), streamed prefill on Mamba stacks and
+    chunks of 32 on DeepSeek-V2; BGMV launched once a banked site a block
+    for every serve/prefill call; a short profiled run.  Then, in f32 at
+    an MoE capacity that drops nothing (``_family_cfg``): streamed
+    ``decode_step`` logits against ``forward`` at every prompt position
+    with an adapter (within ``FAMILY_DECODE_ATOL``), and grouped == gather
+    greedy tokens.  The bf16
+    weights are freed before the f32 ones are drawn."""
+    import gc
+
+    import numpy as np
+    import torch
+
+    from repro_torch.kernels import grouped_lora_matmul as glm
+    from repro_torch.models.transformer import init_params
+
+    out = {}
+    for name, layers, chunk, f32_layers, B, S in FAMILIES:
+        cfg = _family_cfg(name, layers)
+        published = _family_cfg(name, None).num_layers
+        rng = np.random.default_rng(5)
+        adapters = make_adapters(cfg, rng, FAMILY_TENANTS)
+        reqs = family_requests(cfg, rng, FAMILY_REQUESTS)
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        params = init_params(cfg, seed=0)                # bf16 on the card
+        n_params = sum(v.numel() for v in _leaves(params))
+        eng = family_engine(cfg, params, adapters, backend="grouped",
+                            prefill_chunk=chunk)
+        torch.cuda.synchronize()
+        glm.reset_launches()
+        t0 = time.perf_counter()
+        done = eng.run(reqs)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = glm.launches
+        dc = eng.dispatch_count
+        calls = dc["serve_step"] + dc["serve_prefill"]
+        by_uid = {d["uid"]: d for d in done}
+        for q in reqs:
+            d = by_uid[q.uid]
+            if d["status"] != "ok" or len(d["tokens"]) != q.gen_len:
+                raise AssertionError(f"{name} request {q.uid}: status "
+                                     f"{d['status']}, {len(d['tokens'])} of "
+                                     f"{q.gen_len} tokens")
+            if not ((d["tokens"] >= 0) & (d["tokens"] < cfg.vocab_size)).all():
+                raise AssertionError(f"{name} request {q.uid}: token out of "
+                                     "vocabulary")
+        if eng.store.loads <= FAMILY_BANK:
+            raise AssertionError(f"{name}: only {eng.store.loads} page-ins "
+                                 f"for {FAMILY_TENANTS} tenants over "
+                                 f"{FAMILY_BANK} slots")
+        sites = _bgmv_sites(cfg)
+        want = sites * cfg.num_blocks * calls
+        if launches != want or not want:
+            raise AssertionError(
+                f"{name}: grouped_lora_matmul launched {launches} times, "
+                f"expected {sites} sites x {cfg.num_blocks} blocks x {calls} "
+                f"serve/prefill calls = {want}")
+        if chunk is None and dc["serve_prefill"]:
+            raise AssertionError(f"{name}: a streamed engine ran prefill "
+                                 "chunks")
+        peak = torch.cuda.max_memory_allocated() / 1e9
+        tokens = sum(q.gen_len for q in reqs)
+        preqs = family_requests(cfg, np.random.default_rng(6), 4, gen=(8, 9))
+        peng = family_engine(cfg, params, adapters, backend="grouped",
+                             prefill_chunk=chunk)
+        prof = _profiled(lambda: peng.run(preqs),
+                         f"{name} serve, {len(preqs)} requests",
+                         ("shrink_kernel", "base_expand_kernel"))
+        rec = {"layers": cfg.num_layers, "published_layers": published,
+               "depth_cut": (f"{published} -> {cfg.num_layers} layers"
+                             if cfg.num_layers != published else None),
+               "d_model": cfg.d_model, "params": n_params,
+               "prefill_chunk": chunk, "requests": len(reqs),
+               "steps": eng.steps, "dispatch_count": dict(dc),
+               "adapter_loads": eng.store.loads,
+               "evictions": eng.store.evictions, "wall_s": wall,
+               "generated_tokens": tokens, "tokens_per_s": tokens / wall,
+               "launches": launches, "bgmv_sites_per_block": sites,
+               "peak_mem_gb": peak, "profile": prof}
+        print(f"families: {name} bf16 {cfg.num_layers} of {published} "
+              f"layers, d_model {cfg.d_model}, {n_params / 1e9:.2f} B "
+              f"params; {len(reqs)} requests, {eng.steps} steps, {calls} "
+              f"serve/prefill calls, {eng.store.loads} page-ins, "
+              f"{wall:.2f} s wall, {tokens / wall:.1f} generated tokens/s, "
+              f"{launches} BGMV calls ({sites} sites x {cfg.num_blocks} "
+              f"blocks x {calls}), peak {peak:.1f} GB", flush=True)
+        del eng, peng, params
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        # f32, no MoE drops: decode ≡ forward, grouped == gather
+        cfg32 = _family_cfg(name, f32_layers, no_drop=True)
+        p32 = init_params(cfg32, seed=1, dtype="float32")
+        one = make_adapters(cfg32, np.random.default_rng(7), 1)["tenant0"][0]
+        lora = {n: {m: torch.from_numpy(e[m]).cuda() for m in ("A", "B")}
+                for n, e in one.items()}
+        t0 = time.perf_counter()
+        err = _decode_vs_forward(cfg32, p32, lora, B, S, seed=8)
+        dvf_s = time.perf_counter() - t0
+        cf = cfg32.moe.capacity_factor if cfg32.moe is not None else None
+        print(f"families: {name} f32 {cfg32.num_layers} layers, capacity "
+              f"factor {cf}: decode vs forward over {B} x {S} positions max "
+              f"err {err:.3e} ({dvf_s:.1f} s)", flush=True)
+        if not err <= FAMILY_DECODE_ATOL:
+            raise AssertionError(f"{name} f32 ({cfg32.num_layers} layers): "
+                                 f"decode vs forward max err {err:.3e} "
+                                 f"beyond {FAMILY_DECODE_ATOL}")
+        areqs = family_requests(cfg32, np.random.default_rng(9), 8,
+                                gen=(8, 9))
+        ad32 = make_adapters(cfg32, np.random.default_rng(10),
+                             FAMILY_TENANTS)
+        t0 = time.perf_counter()
+        toks = {b: _family_tokens(cfg32, p32, ad32, areqs, b, chunk)
+                for b in ("grouped", "gather")}
+        agree_s = time.perf_counter() - t0
+        if toks["grouped"] != toks["gather"] or len(toks["gather"]) != 8:
+            raise AssertionError(f"{name} f32: grouped vs gather greedy "
+                                 "tokens differ")
+        rec.update({"f32_layers": cfg32.num_layers, "capacity_factor": cf,
+                    "decode_batch": B,
+                    "decode_positions": S, "decode_vs_forward_err": err,
+                    "decode_vs_forward_s": dvf_s,
+                    "f32_grouped_eq_gather": True, "agreement_s": agree_s})
+        print(f"families: {name} f32: grouped == gather tokens for "
+              f"{len(areqs)} requests ({agree_s:.1f} s)", flush=True)
+        del p32, lora
+        out[name] = rec
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -2866,6 +3172,7 @@ def main() -> int:
     ckpt = timed("checkpoint", phase_checkpoint, resident.base_params)
     eval_ref = timed("eval_ref", phase_eval_ref, resident)
     cli = timed("cli", phase_cli)
+    families = timed("families", phase_families)
     print("phase wall s: " + ", ".join(f"{k} {v:.1f}"
                                        for k, v in phase_s.items()),
           flush=True)
@@ -2880,8 +3187,11 @@ def main() -> int:
         "replaces": "src/repro/kernels/lora_gather_matmul.py:71",
         "launches": served["launches"],
         "path_launches": {"serve": served["launches"],
-                          "slo": slo["launches"]},
-        "max_abs_err": max(c["max_abs_err"] for c in cases),
+                          "slo": slo["launches"],
+                          **{f"families.{k}": v["launches"]
+                             for k, v in families.items()}},
+        "max_abs_err": max(c["max_abs_err"]
+                           for c in cases + kern["family_cases"]),
         "max_err_f32": max(c["max_abs_err"] for c in cases
                            if c["x_dtype"] == "float32"),
         "max_err_bf16": max(c["max_abs_err"] for c in cases
@@ -2891,7 +3201,11 @@ def main() -> int:
         "library_call": "torch.matmul(x, W): the base product only",
         "bound_ms": head["bound_ms"], "bound_by": head["bound_by"],
         "shape": {k: head[k] for k in ("M", "K", "N", "G", "r", "x_dtype",
-                                       "bank_dtype")}}
+                                       "bank_dtype")},
+        "family_cases": [{k: c[k] for k in (
+            "site", "M", "K", "N", "max_abs_err", "ms", "plain_ms",
+            "library_ms", "bound_ms", "bound_by")}
+            for c in kern["family_cases"]]}
     records = [record]
     # headline for both dim_agg kernels: the round's wq.A leaf, unscaled
     # (the fedilora_kernel path), with the round's whole tree in one launch
@@ -2981,7 +3295,9 @@ def main() -> int:
                    "build_logs": {k: v["log"]
                                   for k, v in kbuild.BUILD_INFO.items()},
                    "kernels": records,
-                   "kernel_cases": cases, "dim_agg_cases": dagg["cases"],
+                   "kernel_cases": cases,
+                   "kernel_family_cases": kern["family_cases"],
+                   "dim_agg_cases": dagg["cases"],
                    "dim_agg_tree_cases": dagg["tree_cases"],
                    "dim_agg_instances": dagg["instances"],
                    "dim_agg_ptxas": regs, "flash_ptxas": flash_regs,
@@ -2992,7 +3308,8 @@ def main() -> int:
                    "train": trained, "train_agreement": train_agree,
                    "faults": faulted, "timelines": timelines,
                    "population": population, "flora": flora,
-                   "checkpoint": ckpt, "eval_ref": eval_ref, "cli": cli},
+                   "checkpoint": ckpt, "eval_ref": eval_ref, "cli": cli,
+                   "families": families},
                   f, indent=1, default=float)
     print(json.dumps({"kernels": records}))
     print(smi)

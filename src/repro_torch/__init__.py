@@ -11,10 +11,11 @@ The port grows slice by slice.  This package holds:
   CLI ``python -m repro_torch.launch.train``), with dimension-wise
   aggregation as hand-written CUDA kernels for Hopper
   (``kernels/csrc/dim_agg.cu``);
-* the multi-tenant adapter-serving path: model configs, the
-  dense/prefix-VLM decode stack, chunked prefill, the LRU-paged adapter
-  bank and the continuous-batching engine, with the per-row multi-adapter
-  LoRA projection (BGMV) as a hand-written CUDA kernel
+* the multi-tenant adapter-serving path: model configs, the decode
+  stacks of the dense / prefix-VLM, MoE, MLA, Mamba-2 and hybrid
+  families, chunked prefill, the LRU-paged adapter bank and the
+  continuous-batching engine, with the per-row multi-adapter LoRA
+  projection (BGMV) as a hand-written CUDA kernel
   (``kernels/csrc/grouped_lora_matmul.cu``).
 
 Entry points (``FederatedTrainer``, ``ServingEngine``, ``AdapterStore``,

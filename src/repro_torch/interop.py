@@ -18,7 +18,6 @@ import torch
 
 from repro_torch import resolve_device
 from repro_torch.models.config import ModelConfig
-from repro_torch.models.transformer import torch_dtype
 
 
 def to_torch(arr, *, device="cpu", dtype=None) -> torch.Tensor:
@@ -40,12 +39,13 @@ def _tree(tree, **kw):
     return to_torch(tree, **kw)
 
 
-def params_from_numpy(cfg: ModelConfig, tree: dict[str, Any], *, device=None,
-                      dtype=None) -> dict[str, Any]:
-    """The reference's parameter tree → the port's, on ``device``
-    (``None`` = CUDA).  ``dtype`` defaults to ``cfg.dtype``."""
-    device = resolve_device(device)
-    return _tree(tree, device=device, dtype=torch_dtype(dtype or cfg.dtype))
+def params_from_numpy(cfg: ModelConfig, tree: dict[str, Any], *,
+                      device=None) -> dict[str, Any]:
+    """The reference's parameter tree for ``cfg`` → the port's, on
+    ``device`` (``None`` = CUDA).  Every leaf keeps the dtype the reference
+    gave it: under a bf16 config the MoE router and Mamba's ``A_log``,
+    ``D`` and ``dt_bias`` stay f32."""
+    return _tree(tree, device=resolve_device(device))
 
 
 def adapters_from_numpy(tree: dict[str, Any]) -> dict[str, dict]:

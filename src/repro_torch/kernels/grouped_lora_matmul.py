@@ -11,8 +11,8 @@ raises; on a CPU tensor it computes the plain version
 ``ref.grouped_lora_matmul_ref``.  Each call launches two kernels — the
 shrink ``xa = x·A[idx]ᵀ`` into a scratch ``[M, r]`` f32 buffer that the
 wrapper allocates, then the base product and the expansion — and
-``launches`` counts calls (one per call), as the serve path's check
-``2 sites × layers × calls`` reads it.
+``launches`` counts calls (one per call), as the serve paths' checks
+(banked LoRA sites a block × blocks × calls) read it.
 """
 
 from __future__ import annotations

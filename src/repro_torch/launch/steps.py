@@ -103,10 +103,14 @@ def make_greedy_generate(cfg: ModelConfig, *, lora_scale: float,
 
     The prompt (vision prefix + text up to ``cap_start``) fills the cache
     in one chunk through the decode path (the reference streams it one
-    position at a time through ``serve_step``: the same attention, the
-    same cache), its last position gives the first token, then
-    ``gen_len - 1`` cached one-token steps decode greedily."""
+    position at a time through ``serve_step``: for attention and MLA the
+    same products and the same cache), its last position gives the first
+    token, then ``gen_len - 1`` cached one-token steps decode greedily.  A
+    stack with a Mamba layer (a recurrent state) or an MoE layer (whose
+    capacity depends on the tokens routed together) streams the prompt one
+    position at a time, as the reference does."""
     serve_step = make_serve_step(cfg, lora_scale=lora_scale)
+    stream = "mamba" in cfg.pattern or cfg.moe is not None
 
     @torch.no_grad()
     def generate(params, lora, tokens, vision=None):
@@ -119,7 +123,11 @@ def make_greedy_generate(cfg: ModelConfig, *, lora_scale: float,
             n_prefix = pre.shape[1]
         P = xs.shape[1]
         cache = T.init_cache(cfg, params, B, P + gen_len)
-        if P > 1:
+        if stream:
+            for t in range(P - 1):
+                serve_step(params, lora, cache, None, t,
+                           embeds=xs[:, t:t + 1])
+        elif P > 1:
             T.decode_chunk(cfg, params, cache, xs[:, :P - 1],
                            torch.zeros(B, dtype=torch.long,
                                        device=xs.device),

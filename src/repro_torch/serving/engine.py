@@ -121,7 +121,11 @@ class Request:
 
 class ServingEngine:
     """Multi-tenant continuous-batching decode over an :class:`AdapterStore`
-    for dense / prefix-VLM stacks of ``attn`` / ``attn_local`` layers.
+    for stacks whose cache rows a slot reset can zero: ``attn`` /
+    ``attn_local`` (dense or MLA) and ``mamba`` sublayers, with dense or
+    MoE feed-forwards.  Cross-attention and enc-dec stacks are refused, as
+    the reference refuses them; a stack with a Mamba layer prefills by
+    streaming (``prefill_chunk=None``).
 
     ``device=None`` means CUDA (raises without one); params are moved there
     and the store must live there too."""
@@ -139,11 +143,12 @@ class ServingEngine:
         if mesh is not None:
             raise NotImplementedError("the port has no multi-device serving "
                                       "mesh yet")
-        bad = {k for k in cfg.pattern if k not in ("attn", "attn_local")}
-        if bad or cfg.family == "encdec" or cfg.mla is not None:
+        bad = {k for k in cfg.pattern if k not in ("attn", "attn_local",
+                                                   "mamba")}
+        if bad or cfg.family == "encdec":
             raise NotImplementedError(
-                f"the port's serving engine supports attn/attn_local stacks, "
-                f"got pattern {cfg.pattern} family {cfg.family}")
+                f"serving engine supports attn/attn_local/mamba stacks, got "
+                f"pattern {cfg.pattern} family {cfg.family}")
         if lora_backend not in ("gather", "grouped"):
             raise ValueError(f"lora_backend {lora_backend!r} not in "
                              "('gather', 'grouped')")
@@ -173,6 +178,11 @@ class ServingEngine:
             if prefill_chunk < 1:
                 raise ValueError(f"prefill_chunk must be >= 1, got "
                                  f"{prefill_chunk}")
+            if "mamba" in cfg.pattern:
+                raise NotImplementedError(
+                    "chunked prefill needs positional cache rows; a mamba "
+                    "state is recurrent — use streamed prefill "
+                    "(prefill_chunk=None) for mamba stacks")
             if "attn_local" in cfg.pattern and cfg.sliding_window:
                 ring = min(self.cache_len, cfg.sliding_window)
                 if prefill_chunk > ring:
