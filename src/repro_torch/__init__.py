@@ -11,11 +11,13 @@ The port grows slice by slice.  This package holds:
   CLI ``python -m repro_torch.launch.train``), with dimension-wise
   aggregation as hand-written CUDA kernels for Hopper
   (``kernels/csrc/dim_agg.cu``);
-* the multi-tenant adapter-serving path: model configs, the decode
-  stacks of the dense / prefix-VLM, MoE, MLA, Mamba-2 and hybrid
-  families, chunked prefill, the LRU-paged adapter bank and the
-  continuous-batching engine, with the per-row multi-adapter LoRA
-  projection (BGMV) as a hand-written CUDA kernel
+* the model stacks of every family (dense, prefix and cross-attention
+  VLMs, MoE, MLA, Mamba-2, hybrid, encoder-decoder) for training, the
+  evaluation's greedy decode and single-adapter decode;
+* the multi-tenant adapter-serving path: chunked prefill, the LRU-paged
+  adapter bank and the continuous-batching engine (every family but the
+  cross-attention VLM and enc-dec, as in the reference), with the per-row
+  multi-adapter LoRA projection (BGMV) as a hand-written CUDA kernel
   (``kernels/csrc/grouped_lora_matmul.cu``).
 
 Entry points (``FederatedTrainer``, ``ServingEngine``, ``AdapterStore``,

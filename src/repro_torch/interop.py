@@ -1,9 +1,10 @@
 """Carry weights and federated state from the JAX reference into the port.
 
 Both packages use the same parameter tree (``embed``, ``final_ln``,
-``blocks.s{i}.attn.wq`` stacked ``[num_blocks, ...]``, ``vision_proj``...)
-and the same adapter trees (``{spec: {"A", "B"}}``), so the mapping is leaf
-for leaf.  Inputs are trees of numpy arrays (e.g.
+``blocks.s{i}.attn.wq`` stacked ``[num_blocks, ...]``, ``vision_proj``, a
+cross layer's ``gate``, ``lnx`` and ``dec_cross``, the ``encoder`` stacked
+``[encoder_layers, ...]``...) and the same adapter trees (``{spec: {"A",
+"B"}}``, ``enc.*`` entries included), so the mapping is leaf for leaf.  Inputs are trees of numpy arrays (e.g.
 ``jax.device_get(T.init_params(...))`` or ``load_pytree`` of a
 ``save_pytree`` file); bf16 leaves arrive as ``ml_dtypes`` bfloat16 and are
 reinterpreted bit for bit.

@@ -101,28 +101,34 @@ def make_greedy_generate(cfg: ModelConfig, *, lora_scale: float,
     """KV-cached greedy caption generation: ``(params, lora, tokens[B, S],
     vision=None) -> gen int [B, gen_len]``.
 
-    The prompt (vision prefix + text up to ``cap_start``) fills the cache
-    in one chunk through the decode path (the reference streams it one
-    position at a time through ``serve_step``: for attention and MLA the
-    same products and the same cache), its last position gives the first
-    token, then ``gen_len - 1`` cached one-token steps decode greedily.  A
-    stack with a Mamba layer (a recurrent state) or an MoE layer (whose
-    capacity depends on the tokens routed together) streams the prompt one
-    position at a time, as the reference does."""
+    The prompt (a prefix VLM's vision prefix + text up to ``cap_start``)
+    fills the cache in one chunk through the decode path (the reference
+    streams it one position at a time through ``serve_step``: for
+    attention and MLA the same products and the same cache), its last
+    position gives the first token, then ``gen_len - 1`` cached one-token
+    steps decode greedily.  A cross VLM adds no prefix: ``init_cache``
+    builds its layers' static vision K/V, with the adapter.  A stack with a
+    Mamba layer (a recurrent state) or an MoE layer (whose capacity depends
+    on the tokens routed together) streams the prompt one position at a
+    time, as the reference does."""
     serve_step = make_serve_step(cfg, lora_scale=lora_scale)
     stream = "mamba" in cfg.pattern or cfg.moe is not None
+    prefix = cfg.family == "vlm" and cfg.vision_mode == "prefix"
+    cross = cfg.family == "vlm" and cfg.vision_mode == "cross"
 
     @torch.no_grad()
     def generate(params, lora, tokens, vision=None):
         B = tokens.shape[0]
         xs = params["embed"][tokens[:, :cap_start + 1]]          # [B, P, d]
         n_prefix = 0
-        if vision is not None and cfg.family == "vlm":
+        if vision is not None and prefix:
             pre = vision.to(xs.dtype) @ params["vision_proj"]
             xs = torch.cat([pre, xs], dim=1)
             n_prefix = pre.shape[1]
         P = xs.shape[1]
-        cache = T.init_cache(cfg, params, B, P + gen_len)
+        cache = T.init_cache(cfg, params, B, P + gen_len,
+                             vision=vision if cross else None, lora=lora,
+                             lora_scale=lora_scale)
         if stream:
             for t in range(P - 1):
                 serve_step(params, lora, cache, None, t,

@@ -1,7 +1,8 @@
-"""Layers of the decoder stacks (port of ``repro/models/layers.py``: the
-training forward and the decode paths of dense GQA attention (attn /
-attn_local), DeepSeek-V2's multi-head latent attention (MLA), the
-capacity-dispatched mixture of experts (MoE) and Mamba-2's SSD block).
+"""Layers of every stack (port of ``repro/models/layers.py``: the training
+forward and the decode paths of dense GQA attention (attn / attn_local),
+gated and ungated cross-attention (vision and enc-dec), DeepSeek-V2's
+multi-head latent attention (MLA), the capacity-dispatched mixture of
+experts (MoE) and Mamba-2's SSD block).
 
 Plain functions over explicit parameter dictionaries, with the reference's
 conventions: weights are ``[in_dim, out_dim]`` so forward is ``x @ w``;
@@ -73,21 +74,28 @@ def _softcap(scores: torch.Tensor, cap: float) -> torch.Tensor:
 # ---------------------------------------------------------------------------
 
 def init_attention(cfg: ModelConfig, *, n: int, generator: torch.Generator,
-                   device, dtype) -> dict:
-    """Stacked (leading dim n) self-attention params."""
+                   device, dtype, cross: bool = False,
+                   kv_in: int | None = None) -> dict:
+    """Stacked (leading dim n) attention params.  ``cross``: K and V read
+    ``kv_in`` features (default ``vision_dim``), and a tanh gate ``[n]``
+    starts closed at 0 (llama-3.2-vision's gated cross-attention)."""
     d, hd = cfg.d_model, cfg.resolved_head_dim
     h, kv = cfg.num_heads, cfg.num_kv_heads
+    if kv_in is None:
+        kv_in = (cfg.vision_dim or d) if cross else d
     g = dict(generator=generator, device=device, dtype=dtype)
     p = {
         "wq": normal((n, d, h * hd), 1.0 / math.sqrt(d), **g),
-        "wk": normal((n, d, kv * hd), 1.0 / math.sqrt(d), **g),
-        "wv": normal((n, d, kv * hd), 1.0 / math.sqrt(d), **g),
+        "wk": normal((n, kv_in, kv * hd), 1.0 / math.sqrt(kv_in), **g),
+        "wv": normal((n, kv_in, kv * hd), 1.0 / math.sqrt(kv_in), **g),
         "wo": normal((n, h * hd, d), 1.0 / math.sqrt(h * hd), **g),
     }
     if cfg.qkv_bias:
         p["bq"] = torch.zeros((n, h * hd), device=device, dtype=dtype)
         p["bk"] = torch.zeros((n, kv * hd), device=device, dtype=dtype)
         p["bv"] = torch.zeros((n, kv * hd), device=device, dtype=dtype)
+    if cross:
+        p["gate"] = torch.zeros((n,), device=device, dtype=dtype)
     return p
 
 
@@ -246,12 +254,19 @@ def multihead_attention(q, k, v, *, causal: bool, window: int = 0,
 
 
 def attention_forward(params, x, cfg: ModelConfig, *, kind: str, lora=None,
-                      lora_scale: float = 1.0, positions=None, pad_mask=None):
-    """Full-sequence self-attention sublayer (the caller adds the residual).
-    ``kind``: "attn" (global causal) or "attn_local" (sliding window)."""
-    if kind not in ("attn", "attn_local"):
-        raise NotImplementedError(f"attention_forward covers attn and "
-                                  f"attn_local, not {kind!r}")
+                      lora_scale: float = 1.0, positions=None, pad_mask=None,
+                      kv_src=None):
+    """Full-sequence attention sublayer (the caller adds the residual).
+    ``kind``: "attn" (global causal), "attn_local" (sliding window) or
+    "cross_attn": non-causal, no RoPE, keys and values from ``kv_src``
+    [B, P, kv_in] through ``cross_kv``, ``pad_mask`` [B, P] over them, and
+    the output scaled by ``tanh(gate)`` when the params carry a gate."""
+    if kind == "cross_attn":
+        q = _q(params, x, cfg, lora, lora_scale)
+        k, v = cross_kv(params, kv_src, cfg, lora, lora_scale)
+        out = multihead_attention(q, k, v, causal=False, pad_mask=pad_mask)
+        return _gated(params, out.reshape(x.shape[0], x.shape[1], -1)
+                      @ params["wo"])
     q, k, v = _qkv(params, x, x, cfg, lora, lora_scale)
     B, S = x.shape[0], x.shape[1]
     if positions is None:
@@ -264,6 +279,51 @@ def attention_forward(params, x, cfg: ModelConfig, *, kind: str, lora=None,
                               q_pos=positions, k_pos=positions,
                               pad_mask=pad_mask)
     return out.reshape(B, S, -1) @ params["wo"]
+
+
+def _q(params, x, cfg: ModelConfig, lora, lora_scale, lora_idx=None,
+       lora_kernel: bool = False):
+    """A cross sublayer's query [B, S, H, D], LoRA on ``wq`` (one adapter,
+    or a bank indexed per row by ``lora_idx``)."""
+    lq = lora.get("wq") if lora else None
+    if lora_idx is None:
+        q = lora_matmul(x, params["wq"], lq, lora_scale)
+    else:
+        q = grouped_lora_matmul(x, params["wq"], lq, lora_idx, lora_scale,
+                                kernel=lora_kernel)
+    if "bq" in params:
+        q = q + params["bq"]
+    return q.reshape(x.shape[0], x.shape[1], cfg.num_heads,
+                     cfg.resolved_head_dim)
+
+
+def cross_kv(params, src, cfg: ModelConfig, lora=None,
+             lora_scale: float = 1.0):
+    """A cross sublayer's keys and values [B, P, KV, D] from ``src`` [B, P,
+    kv_in], with one adapter's LoRA on ``wv``.  The forward and the decode
+    cache both build them here, so a cached decode reads the adapted
+    values the forward reads (the reference's ``init_cache`` leaves
+    ``wv``'s adapter out).  ``src`` is cast to the weights' dtype, as the
+    reference's ``init_cache`` casts it (its forward lets an f32 source
+    promote a bf16 stack to f32 from the first cross layer on)."""
+    kv, hd = cfg.num_kv_heads, cfg.resolved_head_dim
+    src = src.to(params["wk"].dtype)
+    k = src @ params["wk"]
+    v = lora_matmul(src, params["wv"], lora.get("wv") if lora else None,
+                    lora_scale)
+    if "bk" in params:
+        k = k + params["bk"]
+        v = v + params["bv"]
+    B = src.shape[0]
+    return k.reshape(B, -1, kv, hd), v.reshape(B, -1, kv, hd)
+
+
+def _gated(params, y):
+    """``tanh(gate)·y`` where the sublayer has a gate (vision cross
+    layers; the enc-dec decoder's cross layers have none)."""
+    if "gate" in params:
+        return torch.tanh(params["gate"]).to(y.dtype) * y
+    return y
 
 
 def attention_decode_batch(params, x, cache, cfg: ModelConfig, *, kind: str,
@@ -281,11 +341,17 @@ def attention_decode_batch(params, x, cache, cfg: ModelConfig, *, kind: str,
     reference returns a new cache from a donated buffer); the same dict is
     returned.  Caller invariants as in the reference: valid positions stay
     below the cache length; for ring caches C ≤ ring and, when C > 1, no
-    valid position reaches the ring size."""
-    if kind == "cross_attn":
-        raise NotImplementedError("batched decode covers self-attention "
-                                  "caches only")
+    valid position reaches the ring size.
+
+    ``kind="cross_attn"``: ``cache`` is the static ``{"k","v": [B, P, KV,
+    D]}`` of ``cross_kv`` (an optional ``"mask"`` [B, P]); the C queries
+    attend to all of it and nothing is written."""
     B, C = x.shape[:2]
+    if kind == "cross_attn":
+        q = _q(params, x, cfg, lora, lora_scale, lora_idx, lora_kernel)
+        out = multihead_attention(q, cache["k"], cache["v"], causal=False,
+                                  pad_mask=cache.get("mask"), chunked=False)
+        return _gated(params, out.reshape(B, C, -1) @ params["wo"]), cache
     q, k_new, v_new = _qkv(params, x, x, cfg, lora, lora_scale,
                            lora_idx=lora_idx, lora_kernel=lora_kernel)
     q_pos = pos[:, None] + torch.arange(C, device=pos.device)    # [B, C]
@@ -636,12 +702,17 @@ def _causal_conv(x, w, b):
 
 def _segsum(x):
     """x: [..., Q] → [..., Q, Q] with out[..., i, j] = sum_{j<t<=i} x_t for
-    i >= j, -inf above the diagonal."""
+    i >= j, -inf above the diagonal.
+
+    Each segment is summed on its own, a cumulative sum down column j of x
+    masked to t > j.  The difference of two cumulative sums (the
+    reference's ``cs[i] - cs[j]``) loses digits when dt·A is large: both
+    sums reach hundreds while their difference is a few units."""
     Q = x.shape[-1]
-    cs = torch.cumsum(x, dim=-1)
-    seg = cs[..., :, None] - cs[..., None, :]
-    mask = torch.tril(torch.ones((Q, Q), dtype=torch.bool, device=x.device))
-    return torch.where(mask, seg, -math.inf)
+    ones = torch.ones((Q, Q), dtype=torch.bool, device=x.device)
+    below = x[..., :, None].expand(tuple(x.shape) + (Q,))
+    seg = torch.cumsum(below.masked_fill(~torch.tril(ones, -1), 0.0), dim=-2)
+    return seg.masked_fill(~torch.tril(ones), -math.inf)
 
 
 def ssd_chunked(xh, dt, A, Bm, Cm, chunk: int):
@@ -670,8 +741,9 @@ def ssd_chunked(xh, dt, A, Bm, Cm, chunk: int):
     cb = torch.einsum("bcqn,bckn->bcqk", Cm, Bm)
     M = cb[:, :, None] * L
     y_intra = torch.einsum("bchqk,bckhp->bcqhp", M, dt[..., None] * xh)
-    # each chunk's final state, then the recurrence over chunks
-    decay_to_end = torch.exp(dA_cs[:, :, -1:, :] - dA_cs)          # [B,nc,Q,H]
+    # each chunk's final state, then the recurrence over chunks; the decay
+    # from t to the chunk's end is L's last row (summed without cancelling)
+    decay_to_end = L[:, :, :, -1, :].permute(0, 1, 3, 2)           # [B,nc,Q,H]
     states = torch.einsum("bcqn,bcqhp->bchpn", Bm,
                           (dt * decay_to_end)[..., None] * xh)     # [B,nc,H,P,N]
     chunk_decay = torch.exp(dA_cs[:, :, -1, :])                    # [B,nc,H]
@@ -767,7 +839,7 @@ def mamba_decode(params, x, cache, cfg: ModelConfig, *, lora=None,
 
 
 __all__ = ["NEG_INF", "apply_rope", "attention_decode_batch",
-           "attention_forward", "init_attention", "init_mamba", "init_mla",
+           "attention_forward", "cross_kv", "init_attention", "init_mamba", "init_mla",
            "init_mlp", "init_moe", "mamba_decode", "mamba_forward",
            "mla_decode_batch", "mla_forward", "mlp_forward", "moe_capacity",
            "moe_forward", "moe_route", "multihead_attention", "normal",

@@ -1,16 +1,24 @@
 """Transformer assembly (port of ``repro/models/transformer.py``: init,
 LoRA specs, the training forward and masked next-token loss with the MoE
-auxiliary loss, the decode cache, single-adapter ``decode_step`` and the
-batched multi-adapter ``decode_chunk``) for dense, prefix-VLM, MoE, MLA,
-Mamba-2 and hybrid stacks.  Cross-attention VLMs and encoder-decoder
-stacks are not ported.
+auxiliary loss, the encoder of enc-dec stacks, the decode cache,
+single-adapter ``decode_step`` and the batched multi-adapter
+``decode_chunk``) for every family: dense, prefix and cross-attention VLMs,
+MoE, MLA, Mamba-2, hybrid and encoder-decoder stacks.
 
 Parameters keep the reference's tree: ``embed``, ``final_ln``, optional
-``unembed`` / ``vision_proj``, and ``blocks.s{i}.{ln1, attn | mla | mamba,
-ln2, ffn | moe}`` whose leaves are stacked over ``num_blocks`` on their
-leading axis.  Where the reference ``lax.scan``s over that axis, the port's
-layer loop indexes it.  LoRA trees are ``{"s{i}.attn.wq": {"A": [L, ...],
-"B": [L, ...]}, ...}`` with the reference's spec names (``lora_specs``).
+``unembed`` / ``vision_proj`` / ``encoder`` (``in_proj``, ``final_ln``,
+``blocks.s0`` stacked over ``encoder_layers``), and ``blocks.s{i}.{ln1,
+attn | mla | mamba | cross, [lnx, dec_cross,] ln2, ffn | moe}`` whose
+leaves are stacked over ``num_blocks`` on their leading axis.  Where the
+reference ``lax.scan``s over that axis, the port's layer loop indexes it.
+LoRA trees are ``{"s{i}.attn.wq": {"A": [L, ...], "B": [L, ...]}, ...}``
+with the reference's spec names (``lora_specs``); the ``enc.*`` entries
+stack over the encoder's layers and stay out of the block loop.
+
+Where the reference's decode cache drops an adapter, the port applies it:
+``init_cache`` builds the static cross K/V with ``cross.wv``'s and
+``dec_cross.wv``'s LoRA and encodes the audio with the ``enc.*`` entries,
+so a cached decode equals the forward with an adapter on every site.
 """
 
 from __future__ import annotations
@@ -34,23 +42,17 @@ def torch_dtype(name) -> torch.dtype:
     return name if isinstance(name, torch.dtype) else _DTYPES[str(name)]
 
 
-def _check_supported(cfg: ModelConfig) -> None:
-    if "cross_attn" in cfg.pattern or cfg.family == "encdec":
-        raise NotImplementedError(
-            f"{cfg.name}: the port covers attn / attn_local / MLA / mamba "
-            f"stacks with dense or MoE feed-forwards, not cross-attention "
-            f"or enc-dec (pattern {cfg.pattern}, family {cfg.family})")
-
-
 # ---------------------------------------------------------------------------
 # parameter init
 # ---------------------------------------------------------------------------
 
-def _init_sublayer(cfg: ModelConfig, kind: str, i: int, g: dict) -> dict:
-    """Pattern sublayer ``i``: its norm, its mixer (attention, MLA or
-    Mamba) and its feed-forward (MoE on the config's MoE layers, else a
-    SwiGLU when ``d_ff > 0``), stacked over the blocks."""
-    n, d = cfg.num_blocks, cfg.d_model
+def _init_sublayer(cfg: ModelConfig, kind: str, i: int, g: dict,
+                   n: int | None = None) -> dict:
+    """Pattern sublayer ``i``: its norm, its mixer (attention, MLA, gated
+    cross-attention or Mamba) and its feed-forward (MoE on the config's MoE
+    layers, else a SwiGLU when ``d_ff > 0``), stacked over ``n`` layers
+    (default the blocks)."""
+    n, d = n or cfg.num_blocks, cfg.d_model
     dev, dt = g["device"], g["dtype"]
     p: dict = {"ln1": torch.ones((n, d), device=dev, dtype=dt)}
     if kind in ("attn", "attn_local"):
@@ -58,6 +60,8 @@ def _init_sublayer(cfg: ModelConfig, kind: str, i: int, g: dict) -> dict:
             p["mla"] = L.init_mla(cfg, n=n, **g)
         else:
             p["attn"] = L.init_attention(cfg, n=n, **g)
+    elif kind == "cross_attn":
+        p["cross"] = L.init_attention(cfg, n=n, cross=True, **g)
     elif kind == "mamba":
         p["mamba"] = L.init_mamba(cfg, n=n, **g)
     else:
@@ -79,8 +83,8 @@ def init_params(cfg: ModelConfig, *, seed: int = 0,
     the reference's; the draws are torch's own.  ``dtype`` (default
     ``cfg.dtype``) is every leaf's but the ones the reference keeps in f32
     whatever the config says: the MoE router and Mamba's ``A_log``, ``D``
-    and ``dt_bias``."""
-    _check_supported(cfg)
+    and ``dt_bias``.  A vision cross layer's gate starts closed (0), as
+    the reference's does."""
     device = resolve_device(device)
     dt = torch_dtype(dtype or cfg.dtype)
     if generator is None:
@@ -98,6 +102,19 @@ def init_params(cfg: ModelConfig, *, seed: int = 0,
     if cfg.family == "vlm" and cfg.vision_mode == "prefix":
         params["vision_proj"] = L.normal((cfg.vision_dim, d),
                                          cfg.vision_dim ** -0.5, **g)
+    if cfg.family == "encdec":
+        params["encoder"] = {
+            "in_proj": L.normal((cfg.audio_dim, d), cfg.audio_dim ** -0.5,
+                                **g),
+            "final_ln": torch.ones((d,), device=device, dtype=dt),
+            "blocks": {"s0": _init_sublayer(cfg, "attn", 0, g,
+                                            n=cfg.encoder_layers)}}
+        # the decoder's ungated cross-attention over the encoder output
+        for sp in params["blocks"].values():
+            sp["lnx"] = torch.ones((cfg.num_blocks, d), device=device,
+                                   dtype=dt)
+            sp["dec_cross"] = L.init_attention(cfg, n=cfg.num_blocks,
+                                               kv_in=d, **g)
     return params
 
 
@@ -191,10 +208,14 @@ def _feed_forward(cfg: ModelConfig, bp: dict, x):
 
 
 def _run_blocks(cfg: ModelConfig, blocks: Tree, lora: Tree | None, x, *,
-                lora_scale: float, positions, pad_mask=None):
+                lora_scale: float, positions, pad_mask=None, vision=None,
+                enc_out=None, enc_mask=None):
     """The block stack over [B, S, d]: per block, each pattern sublayer's
-    pre-norm mixer (attention, MLA or Mamba-2) and feed-forward, both
-    residual.  Returns (x, the MoE aux losses summed, f32)."""
+    pre-norm mixer (attention, MLA, gated cross-attention over ``vision``
+    or Mamba-2), on enc-dec stacks the cross-attention over ``enc_out``
+    (keys masked by ``enc_mask``), and the feed-forward, all residual.
+    Only the block-stacked ``s*`` LoRA entries ride the loop.  Returns (x,
+    the MoE aux losses summed, f32)."""
     lora = {k: v for k, v in (lora or {}).items() if k.startswith("s")}
     aux_tot = torch.zeros((), dtype=torch.float32, device=x.device)
     for l in range(cfg.num_blocks):
@@ -213,31 +234,71 @@ def _run_blocks(cfg: ModelConfig, blocks: Tree, lora: Tree | None, x, *,
                 mp = _fold_mamba(sp["mamba"], _sub_lora(lt, f"{pre}.mamba"),
                                  lora_scale)
                 y = L.mamba_forward(mp, h, cfg)
+            elif "cross" in sp:
+                y = L.attention_forward(
+                    sp["cross"], h, cfg, kind="cross_attn",
+                    lora=_sub_lora(lt, f"{pre}.cross"), lora_scale=lora_scale,
+                    kv_src=vision)
             else:
                 y = L.attention_forward(
                     sp["attn"], h, cfg, kind=kind,
                     lora=_sub_lora(lt, f"{pre}.attn"), lora_scale=lora_scale,
                     positions=positions, pad_mask=pad_mask)
-            x, aux = _feed_forward(cfg, sp, x + y)
+            x = x + y
+            if "dec_cross" in sp:
+                hx = L.rms_norm(x, sp["lnx"], cfg.norm_eps)
+                x = x + L.attention_forward(
+                    sp["dec_cross"], hx, cfg, kind="cross_attn",
+                    lora=_sub_lora(lt, f"{pre}.dec_cross"),
+                    lora_scale=lora_scale, kv_src=enc_out, pad_mask=enc_mask)
+            x, aux = _feed_forward(cfg, sp, x)
             if aux is not None:
                 aux_l = aux_l + aux
         aux_tot = aux_tot + aux_l
     return x, aux_tot
 
 
+def encode(cfg: ModelConfig, params: Tree, audio, lora=None,
+           lora_scale: float = 1.0, audio_mask=None):
+    """The enc-dec encoder: ``audio`` [B, P, audio_dim] frame embeddings
+    through ``encoder_layers`` bidirectional self-attention layers (RoPE,
+    keys masked by ``audio_mask`` [B, P]) with the ``enc.attn.wq`` /
+    ``enc.attn.wv`` adapters, then the final norm.  Returns [B, P, d]."""
+    enc = params["encoder"]
+    x = audio.to(enc["in_proj"].dtype) @ enc["in_proj"]
+    lora = {k[len("enc."):]: v for k, v in (lora or {}).items()
+            if k.startswith("enc.")}
+    S = x.shape[1]
+    pos = torch.arange(S, device=x.device)
+    for l in range(cfg.encoder_layers):
+        bp = _layer(enc["blocks"]["s0"], l)
+        lt = _sub_lora(_layer(lora, l), "attn")
+        hn = L.rms_norm(x, bp["ln1"], cfg.norm_eps)
+        q, k, v = L._qkv(bp["attn"], hn, hn, cfg, lt, lora_scale)
+        q = L.apply_rope(q, pos, cfg.rope_theta)
+        k = L.apply_rope(k, pos, cfg.rope_theta)
+        o = L.multihead_attention(q, k, v, causal=False, pad_mask=audio_mask)
+        x = x + o.reshape(x.shape[0], S, -1) @ bp["attn"]["wo"]
+        x = x + L.mlp_forward(bp["ffn"], L.rms_norm(x, bp["ln2"],
+                                                    cfg.norm_eps))
+    return L.rms_norm(x, enc["final_ln"], cfg.norm_eps)
+
+
 def forward(cfg: ModelConfig, params: Tree, tokens, *, lora=None,
-            lora_scale: float = 1.0, vision=None, pad_mask=None,
-            last_only: bool = False):
-    """Training / prefill forward.  ``vision`` [B, P, vision_dim] is
-    projected into a P-position prefix ahead of the text (prefix VLM).
+            lora_scale: float = 1.0, vision=None, audio=None, pad_mask=None,
+            audio_mask=None, last_only: bool = False):
+    """Training / prefill forward.  ``vision`` [B, P, vision_dim]: a prefix
+    VLM projects it into a P-position prefix ahead of the text; a cross
+    VLM's gated cross layers attend to it.  ``audio`` [B, P, audio_dim]
+    (enc-dec): the encoder's input, its frames masked by ``audio_mask``.
     Returns (logits [B, S, V] — [B, 1, V] with ``last_only`` —, the MoE
     aux loss: a 0-d f32 tensor, 0 without MoE layers)."""
-    _check_supported(cfg)
     x = params["embed"][tokens]
     B, S = tokens.shape
     positions = torch.arange(S, device=x.device)
     n_prefix = 0
-    if cfg.family == "vlm" and vision is not None:
+    if cfg.family == "vlm" and cfg.vision_mode == "prefix" \
+            and vision is not None:
         pre = vision.to(x.dtype) @ params["vision_proj"]        # [B, P, d]
         x = torch.cat([pre, x], dim=1)
         n_prefix = pre.shape[1]
@@ -245,9 +306,14 @@ def forward(cfg: ModelConfig, params: Tree, tokens, *, lora=None,
         if pad_mask is not None:
             pad_mask = torch.cat([pad_mask.new_ones((B, n_prefix)),
                                   pad_mask], dim=1)
+    enc_out = None
+    if cfg.family == "encdec":
+        enc_out = encode(cfg, params, audio, lora, lora_scale, audio_mask)
     x, aux = _run_blocks(cfg, params["blocks"], lora, x,
                          lora_scale=lora_scale, positions=positions,
-                         pad_mask=pad_mask)
+                         pad_mask=pad_mask,
+                         vision=vision if cfg.vision_mode == "cross" else None,
+                         enc_out=enc_out, enc_mask=audio_mask)
     x = L.rms_norm(x, params["final_ln"], cfg.norm_eps)
     if n_prefix:
         x = x[:, n_prefix:]
@@ -262,14 +328,15 @@ def loss_fn(cfg: ModelConfig, params: Tree, lora: Tree | None, batch: dict,
             lora_scale: float = 1.0):
     """Masked next-token cross-entropy plus the MoE aux loss.  ``batch``:
     tokens, labels, loss_mask, optional image and image_mask (a zero
-    ``image_mask`` row zeroes that example's vision prefix: the
-    missing-modality path).  Returns (loss + aux, {"loss", "aux",
-    "acc"}), all 0-d f32 tensors."""
+    ``image_mask`` row zeroes that example's vision input: the
+    missing-modality path) and audio (enc-dec).  Returns (loss + aux,
+    {"loss", "aux", "acc"}), all 0-d f32 tensors."""
     vision = batch.get("image")
     if vision is not None and "image_mask" in batch:
         vision = (vision * batch["image_mask"][:, None, None]).to(vision.dtype)
     logits, aux = forward(cfg, params, batch["tokens"], lora=lora,
-                          lora_scale=lora_scale, vision=vision)
+                          lora_scale=lora_scale, vision=vision,
+                          audio=batch.get("audio"))
     logits = logits.float()
     logp = F.log_softmax(logits, dim=-1)
     labels = batch["labels"].long()
@@ -285,21 +352,41 @@ def loss_fn(cfg: ModelConfig, params: Tree, lora: Tree | None, batch: dict,
 # decode
 # ---------------------------------------------------------------------------
 
-def init_cache(cfg: ModelConfig, params: Tree, batch: int,
-               max_len: int) -> Tree:
-    """Zeroed per-sublayer decode state, stacked over blocks, on the device
-    and in the dtype of ``params["embed"]``: attention K/V ``{"k","v": [n,
-    batch, S, KV, D]}`` (local layers hold a ring of ``min(max_len,
+def _static_kv(cfg: ModelConfig, stacked: Tree, src, lora, lora_scale):
+    """A cross sublayer's static cache ``{"k","v": [n, B, P, KV, D]}``
+    from ``src``, layer by layer, with ``lora`` (leaves [n, ...])."""
+    ks, vs = zip(*(L.cross_kv(_layer(stacked, l), src, cfg,
+                              _layer(lora, l), lora_scale)
+                   for l in range(cfg.num_blocks)))
+    return {"k": torch.stack(ks), "v": torch.stack(vs)}
+
+
+def init_cache(cfg: ModelConfig, params: Tree, batch: int, max_len: int, *,
+               vision=None, audio=None, lora=None,
+               lora_scale: float = 1.0) -> Tree:
+    """Per-sublayer decode state, stacked over blocks, on the device and in
+    the dtype of ``params["embed"]``: attention K/V ``{"k","v": [n, batch,
+    S, KV, D]}`` (local layers hold a ring of ``min(max_len,
     sliding_window)`` rows), MLA's compressed ``{"c_kv": [n, batch,
     max_len, c], "k_rope": [n, batch, max_len, rd]}``, Mamba's ``{"h": [n,
-    batch, H, P, N] f32, "conv": [n, batch, W-1, C]}``.  A zero row is a
-    fresh row of every kind."""
-    _check_supported(cfg)
+    batch, H, P, N] f32, "conv": [n, batch, W-1, C]}``, all zero (a zero
+    row is a fresh row of every kind).
+
+    The static caches, under the reference's keys: a cross VLM's ``s{i}``
+    holds the K/V of ``vision`` [batch, P, vision_dim], an enc-dec stack's
+    ``s{i}_dec_cross`` those of the encoded ``audio``.  Unlike the
+    reference's, they carry ``lora``'s adapter (``cross.wv``,
+    ``dec_cross.wv`` and the encoder's ``enc.*``), so that the decode with
+    that adapter equals the forward."""
     ref = params["embed"]
     kv, hd, n = cfg.num_kv_heads, cfg.resolved_head_dim, cfg.num_blocks
     cache: dict = {}
     for i, kind in enumerate(cfg.pattern):
-        if kind == "mamba":
+        if kind == "cross_attn":
+            cache[f"s{i}"] = _static_kv(
+                cfg, params["blocks"][f"s{i}"]["cross"], vision,
+                _sub_lora(lora, f"s{i}.cross"), lora_scale)
+        elif kind == "mamba":
             s = cfg.ssm
             d_in = s.expand * cfg.d_model
             cache[f"s{i}"] = {
@@ -320,6 +407,12 @@ def init_cache(cfg: ModelConfig, params: Tree, batch: int,
             shape = (n, batch, S, kv, hd)
             cache[f"s{i}"] = {"k": ref.new_zeros(shape),
                               "v": ref.new_zeros(shape)}
+    if cfg.family == "encdec":
+        enc_out = encode(cfg, params, audio, lora, lora_scale)
+        for i in range(cfg.period):
+            cache[f"s{i}_dec_cross"] = _static_kv(
+                cfg, params["blocks"][f"s{i}"]["dec_cross"], enc_out,
+                _sub_lora(lora, f"s{i}.dec_cross"), lora_scale)
     return cache
 
 
@@ -361,12 +454,21 @@ def decode_chunk(cfg: ModelConfig, params: Tree, cache: Tree, embeds, pos, *,
 
     With one adapter (``adapter_idx=None``) it folds into the Mamba
     projections here; the reference's ``decode_chunk`` drops it on Mamba
-    layers, and only its ``decode_step`` folds it."""
+    layers, and only its ``decode_step`` folds it.  One adapter also
+    serves a cross VLM's gated layers and an enc-dec stack's decoder
+    cross layers, over the static caches of ``init_cache`` (which must
+    carry that adapter's ``cross.wv`` / ``dec_cross.wv`` / ``enc.*``
+    entries); with a bank both families raise, as the reference does."""
     C = embeds.shape[1]
     if logits and C != 1:
         raise ValueError("logits=True needs C == 1 (prefill discards them)")
-    _check_supported(cfg)
-    bank = adapters if adapters is not None else {}
+    if adapter_idx is not None:
+        if cfg.family == "encdec":
+            raise NotImplementedError("enc-dec stacks are engine-gated")
+        if "cross_attn" in cfg.pattern:
+            raise NotImplementedError(
+                "batched decode does not support 'cross_attn'")
+    bank = {k: v for k, v in (adapters or {}).items() if k.startswith("s")}
     h = embeds
     for l in range(cfg.num_blocks):
         bp = _layer(params["blocks"], l)
@@ -395,12 +497,23 @@ def decode_chunk(cfg: ModelConfig, params: Tree, cache: Tree, embeds, pos, *,
                     lora=_sub_lora(lt, f"{pre}.mla"), lora_scale=lora_scale,
                     lora_idx=adapter_idx, lora_kernel=lora_kernel)
             else:
+                mixer = "cross" if "cross" in sp else "attn"
                 y, _ = L.attention_decode_batch(
-                    sp["attn"], hn, ci, cfg, kind=kind, pos=pos, valid=valid,
-                    lora=_sub_lora(lt, f"{pre}.attn"), lora_scale=lora_scale,
-                    lora_idx=adapter_idx, lora_kernel=lora_kernel,
-                    chunked=chunked)
-            h, _ = _feed_forward(cfg, sp, h + y)
+                    sp[mixer], hn, ci, cfg, kind=kind, pos=pos, valid=valid,
+                    lora=_sub_lora(lt, f"{pre}.{mixer}"),
+                    lora_scale=lora_scale, lora_idx=adapter_idx,
+                    lora_kernel=lora_kernel, chunked=chunked)
+            h = h + y
+            if "dec_cross" in sp:
+                hx = L.rms_norm(h, sp["lnx"], cfg.norm_eps)
+                y, _ = L.attention_decode_batch(
+                    sp["dec_cross"], hx,
+                    {k: c[l] for k, c in cache[f"{pre}_dec_cross"].items()},
+                    cfg, kind="cross_attn", pos=pos,
+                    lora=_sub_lora(lt, f"{pre}.dec_cross"),
+                    lora_scale=lora_scale)
+                h = h + y
+            h, _ = _feed_forward(cfg, sp, h)
     if not logits:
         return None, cache
     x = L.rms_norm(h, params["final_ln"], cfg.norm_eps)
@@ -411,5 +524,5 @@ def decode_chunk(cfg: ModelConfig, params: Tree, cache: Tree, embeds, pos, *,
     return out.float(), cache
 
 
-__all__ = ["decode_chunk", "decode_step", "forward", "init_cache",
+__all__ = ["decode_chunk", "decode_step", "encode", "forward", "init_cache",
            "init_params", "loss_fn", "lora_specs", "torch_dtype"]

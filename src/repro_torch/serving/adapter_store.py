@@ -164,6 +164,22 @@ class AdapterStore:
     def __contains__(self, adapter_id: Hashable) -> bool:
         return adapter_id in self._host or adapter_id in self.quarantined
 
+    def __len__(self) -> int:
+        return len(self._host)
+
+    @property
+    def resident_ids(self) -> list[Hashable]:
+        """The adapters in the bank, in slot order."""
+        return self._pager.resident_ids
+
+    @property
+    def stack(self) -> Tree:
+        """The bank slot-major, ``{spec: {"A": [slots, L, r, in], "B":
+        [slots, L, out, r]}}``: a view of :attr:`scan_stack` (the
+        reference's ``stack``; block-stacked ``s*`` specs only)."""
+        return {name: {p: x.transpose(0, 1) for p, x in entry.items()}
+                for name, entry in self.scan_stack.items()}
+
     @property
     def scan_stack(self) -> Tree:
         """The device bank, scan-major ``{spec: {"A": [L, slots, r, in],

@@ -132,8 +132,6 @@ def test_gate_refuses_like_reference(name, kw):
         errs.append(str(e.value))
     assert errs[0] == errs[1]
     if "cross_attn" in get_reduced_config(name).pattern:
-        with pytest.raises(NotImplementedError, match="cross"):
-            TT.init_params(t_reduced(name), device="cpu")
         assert "cross_attn" in errs[1]
 
 
