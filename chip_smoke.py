@@ -173,12 +173,32 @@ Phases (each raises on failure; the script then exits non-zero):
     tokens (a 2688-position prompt: the forward's cross layers chunked)
     and on seamless-m4t-medium uncut; a bf16 ``loss_fn`` on
     seamless-m4t-medium with finite, nonzero gradients on its encoder
-    and decoder cross-attention adapters.
+    and decoder cross-attention adapters;
+19. mesh — the port's meshes over NCCL, in processes spawned with
+    ``torch.multiprocessing`` (a rendezvous file under ``build/``), every
+    launch of BGMV, ``dim_agg`` and ``dim_agg_trimmed`` in them held
+    against its plain version on the same inputs as it runs.  On one card
+    (world size 1, every mesh code path): fedbench-100m as the train phase
+    sets it up, 2 ``fedilora_kernel`` rounds and 1
+    ``fedilora_trimmed_kernel`` round on a ``(1,)`` client mesh and a
+    ``(1, 1)`` (client, model) mesh, each bit for bit the unmeshed rounds
+    from the same state (records, global and stacked adapters) with one
+    kernel launch a round; qwen2-0.5b in bf16 (grouped) on a ``("data",)``
+    and a ``("data", "model")`` mesh, tokens equal to the unmeshed
+    engine's; the collective counts printed.  With 4 cards or more, also a
+    2x2 round (4 ranks) and on 2 ranks a client mesh with n_sample 3 (the
+    cohort padded to 4, the trimmed kernel at K = 4 with a client that
+    covers nothing), a 2-slot serving mesh and a tensor-parallel serving
+    mesh (in f32: GEMMs over fewer rows or columns round bf16 otherwise,
+    and a near tie can flip a greedy token),
+    each against the unmeshed run: cohorts, edits and ranks exact, losses
+    within 1e-4, adapters as ``tests/test_torch_mesh_round.py`` holds
+    them, tokens equal.  A line says whether that part ran.
 
 Each path that runs a kernel (ops: ``lora_matmul`` and ``flash_attention``;
 serve, slo and families: BGMV; train, faults, timelines, population,
 checkpoint and vision: ``dim_agg``; the trimmed runs and vision:
-``dim_agg_trimmed``) is driven
+``dim_agg_trimmed``; mesh: all three) is driven
 with the launch counts set to 0 just before it and read just after; a
 kernel that its path never launched fails the run.  It prints a JSON
 line describing every kernel, the ``nvidia-smi`` line, and last
@@ -191,6 +211,7 @@ wall) goes to ``build/chip_smoke.json``.
 
 from __future__ import annotations
 
+import dataclasses
 import json
 import math
 import os
@@ -209,7 +230,9 @@ PEAKS = [("H200", 4.8e12, 989e12, 67e12, 495e12),
          ("H100", 3.35e12, 989e12, 67e12, 495e12)]
 
 KERNEL_SHAPES = [(16, 896, 896), (16, 896, 128), (512, 896, 896),
-                 (512, 896, 128)]
+                 (512, 896, 128),
+                 # qwen2-0.5b's wq / wv columns at tensor-parallel degree 2
+                 (16, 896, 448), (16, 896, 64)]
 N_TENANTS, RANKS, BANK_SLOTS = 12, (8, 16, 32, 64), 8
 KERNEL_SOURCES = ("grouped_lora_matmul", "dim_agg", "lora_matmul",
                   "lora_matmul_wgmma", "flash_attention",
@@ -1468,14 +1491,14 @@ def make_requests(cfg, rng, n: int, *, gen_len=None):
     return reqs
 
 
-def make_engine(cfg, params, adapters, *, backend: str):
+def make_engine(cfg, params, adapters, *, backend: str, mesh=None):
     from repro_torch.serving import AdapterStore, ServingEngine
-    store = AdapterStore(slots=BANK_SLOTS, rank=max(RANKS))
+    store = AdapterStore(slots=BANK_SLOTS, rank=max(RANKS), mesh=mesh)
     for tid, (lora, rank) in adapters.items():
         store.register(tid, lora, rank)
     eng = ServingEngine(cfg, params, store, lora_scale=16.0 / max(RANKS),
                         max_slots=16, max_prompt=128, max_gen=64,
-                        prefill_chunk=32, lora_backend=backend)
+                        prefill_chunk=32, lora_backend=backend, mesh=mesh)
     return eng, store
 
 
@@ -1879,14 +1902,15 @@ _FED_DATA: dict = {}
 
 
 def fed_setup(aggregator: str, *, base=None, model: str = "fedbench-100m",
-              task: dict | None = None, **fed_kw):
+              task: dict | None = None, mesh=None, **fed_kw):
     """fedbench-100m as ``examples/federated_finetune.py`` sets it up: the
     synthetic task with seed 1, 10 clients of heterogeneous sizes, 80/20
     train/eval shards, 60% missing modalities, ranks 4..32, 4 clients a
     round, batch 8, 10 local steps, editing on.  ``model`` and ``task``
     (``SyntheticTaskConfig`` fields, e.g. the image width) put another
     model under the same protocol.  Each corpus is made once and shared by
-    every trainer (none writes to it)."""
+    every trainer (none writes to it).  ``fed_kw`` override
+    ``FederatedConfig`` fields; ``mesh`` is the trainer's round mesh."""
     from repro_torch.configs import get_config
     from repro_torch.core.editing import EditConfig
     from repro_torch.data import (SyntheticTaskConfig, apply_missing_modality,
@@ -1910,15 +1934,15 @@ def fed_setup(aggregator: str, *, base=None, model: str = "fedbench-100m",
             ev.append({kk: v[n_tr:] for kk, v in d.items()})
         _FED_DATA[key] = dict(tr=tr, ev=ev, gtest=gtest)
     data = _FED_DATA[key]
-    fed = FederatedConfig(num_clients=10, sample_rate=0.4, ranks=TRAIN_RANKS,
-                          local_steps=10, batch_size=8, aggregator=aggregator,
-                          edit=EditConfig(), **fed_kw)
+    fed = FederatedConfig(**{**dict(
+        num_clients=10, sample_rate=0.4, ranks=TRAIN_RANKS, local_steps=10,
+        batch_size=8, aggregator=aggregator, edit=EditConfig()), **fed_kw})
     opt = OptimizerConfig(peak_lr=1e-3, total_steps=TRAIN_ROUNDS * 10)
     cfg = get_config(model)
     if base is None:
         base = init_params(cfg, seed=42)
     return FederatedTrainer(cfg, fed, opt, data["tr"], data["ev"],
-                            data["gtest"], base_params=base)
+                            data["gtest"], base_params=base, mesh=mesh)
 
 
 def phase_train() -> dict:
@@ -3524,6 +3548,358 @@ def phase_vision(dev_name: str) -> dict:
     return out
 
 
+# the mesh phase: rounds on fedbench-100m (as fed_setup builds them) and
+# qwen2-0.5b serving, on round and serving meshes over NCCL, each run
+# beside the unmeshed run from the same state.  ``MESH_ROUNDS``: (aggregator,
+# rounds, FederatedConfig fields); the serving requests are the serve
+# phase's kind, shorter
+MESH_ROUNDS = (("fedilora_kernel", 2, {}),
+               ("fedilora_trimmed_kernel", 1, {"trim_frac": 0.25}))
+MESH_SERVE_REQUESTS, MESH_SERVE_GEN = 12, 16
+MESH_TIMEOUT_S = 600
+
+
+def _held_kernels() -> dict:
+    """Wrap the launching entry points of BGMV and both ``dim_agg``
+    kernels: each launch runs (and counts) as before, then its plain
+    version runs on the same inputs and the output is held against it
+    (BGMV at the kernels phase's limits, ``dim_agg`` at ``_hold_agg``'s).
+    Returns the running record: launches held, the largest error and
+    every shape seen, per kernel."""
+    import torch
+
+    from repro_torch.kernels import dim_agg as DK
+    from repro_torch.kernels import grouped_lora_matmul as glm
+
+    held = {k: {"held": 0, "max_abs_err": 0.0, "shapes": set()}
+            for k in ("grouped_lora_matmul", "dim_agg", "dim_agg_trimmed")}
+
+    def note(kernel, err, *shapes):
+        h = held[kernel]
+        h["held"] += 1
+        h["max_abs_err"] = max(h["max_abs_err"], err)
+        h["shapes"].update(shapes)
+
+    bgmv = glm.grouped_lora_matmul_cuda
+
+    def bgmv_held(x, w, a, b, idx, *, scale=1.0):
+        y = bgmv(x, w, a, b, idx, scale=scale)
+        ref = glm.grouped_lora_matmul_ref(x.float(), w.float(), a.float(),
+                                          b.float(), idx, scale=scale)
+        err = (y.float() - ref).abs()
+        tol = 1e-4 if x.dtype == a.dtype == torch.float32 else 2e-2
+        if not bool((err <= tol + tol * ref.abs()).all()):
+            raise AssertionError(f"mesh BGMV {tuple(x.shape)} x "
+                                 f"{tuple(w.shape)}: max err "
+                                 f"{err.max().item():.3e} beyond {tol}")
+        note("grouped_lora_matmul", err.max().item(),
+             (x.shape[0], w.shape[0], w.shape[1], a.shape[0], a.shape[1],
+              str(x.dtype).split(".")[-1]))
+        return y
+
+    def tree_held(kernel, launch, plain):
+        def run(leaves, *args):
+            outs = launch(leaves, *args)
+            errs = [_hold_agg(f"mesh {kernel} {tuple(x.shape)}", y,
+                              plain(x, *args, rank_axis=ax))["max_abs_err"]
+                    for (x, ax), y in zip(leaves, outs)]
+            note(kernel, max(errs), *(tuple(x.shape) for x, _ in leaves))
+            return outs
+        return run
+
+    glm.grouped_lora_matmul_cuda = bgmv_held
+    DK.dim_agg_tree_cuda = tree_held("dim_agg", DK.dim_agg_tree_cuda,
+                                     DK.plain_dim_agg)
+    DK.dim_agg_trimmed_tree_cuda = tree_held(
+        "dim_agg_trimmed", DK.dim_agg_trimmed_tree_cuda,
+        DK.plain_dim_agg_trimmed)
+    return held
+
+
+def _adapters_close(got, want, rounds: int, steps: int, lr: float) -> dict:
+    """``got`` against ``want`` at the CPU tests' limits for a
+    tensor-parallel round (``tests/test_torch_mesh_round.py``): all but
+    0.1 % of each leaf within 5e-4, every element within one AdamW step
+    per local step and round, the mean within 1e-6."""
+    worst, ok = 0.0, True
+    for n in want:
+        for m in ("A", "B"):
+            d = (got[n][m] - want[n][m]).abs()
+            worst = max(worst, d.max().item())
+            ok &= bool((d > 5e-4).float().mean() <= 1e-3
+                       and d.max() <= rounds * steps * lr
+                       and d.mean() <= 1e-6)
+    return {"max_abs_err": worst, "within_tol": ok}
+
+
+def _mesh_rounds(meshes: dict, held: dict, *, exact: bool,
+                 **fed_kw) -> dict:
+    """``MESH_ROUNDS`` on every mesh of ``meshes`` (name → Mesh) and
+    unmeshed, each from fed_setup's state.  ``exact``: every mesh must give
+    the unmeshed records and adapters bit for bit; otherwise the cohorts,
+    edits and ranks exactly, the losses within 1e-4 and the adapters by
+    ``_adapters_close``.  Every rank's global is the same bit for bit (its
+    sum over ranks is ``world`` times its own), and ``dim_agg`` /
+    ``dim_agg_trimmed`` launch once a round."""
+    import torch
+
+    from repro_torch.kernels import dim_agg as DK
+
+    base = fed_setup("fedilora").base_params
+    out = {}
+    for agg, rounds, kw in MESH_ROUNDS:
+        runs = {}
+        for name, mesh in [("unmeshed", None)] + list(meshes.items()):
+            tr = fed_setup(agg, base=base, mesh=mesh, **kw, **fed_kw)
+            DK.reset_launches()
+            if mesh is not None:
+                mesh.reset_collectives()
+            recs, walls = [], []
+            for _ in range(rounds):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                recs.append(tr.run_round())
+                torch.cuda.synchronize()
+                walls.append(time.perf_counter() - t0)
+            key = "dim_agg_trimmed" if "trimmed" in agg else "dim_agg"
+            if DK.launches[key] != rounds:
+                raise AssertionError(f"mesh {name} {agg}: launches "
+                                     f"{dict(DK.launches)}, expected {rounds}"
+                                     f" {key}, one a round")
+            runs[name] = {"recs": recs, "walls": walls, "trainer": tr,
+                          "launches": dict(DK.launches),
+                          "collectives": ({} if mesh is None else {
+                              f"{op}.{ax}": n for (op, ax), n in
+                              mesh.collectives.items()})}
+        plain = runs.pop("unmeshed")
+        res = {"unmeshed_walls": plain["walls"]}
+        for name, r in runs.items():
+            tr, mesh = r["trainer"], meshes[name]
+            flat = torch.cat([e[m].reshape(-1) for e in
+                              tr.server.global_lora.values() for m in "AB"])
+            ranks_flat = [torch.empty_like(flat) for _ in
+                          range(torch.distributed.get_world_size())]
+            torch.distributed.all_gather(ranks_flat, flat)
+            if not all(torch.equal(f, flat) for f in ranks_flat):
+                raise AssertionError(f"mesh {name} {agg}: the ranks' globals "
+                                     "differ")
+            pt = plain["trainer"]
+            if exact:
+                same = (r["recs"] == plain["recs"] and all(
+                    torch.equal(tr.server.global_lora[n][m],
+                                pt.server.global_lora[n][m])
+                    and torch.equal(tr.stacked_lora[n][m],
+                                    pt.stacked_lora[n][m])
+                    for n in pt.server.global_lora for m in "AB"))
+                if not same:
+                    raise AssertionError(f"mesh {name} {agg}: not bit for bit"
+                                         " the unmeshed rounds")
+                err = {"max_abs_err": 0.0, "bit_equal": True}
+            else:
+                for a, b in zip(r["recs"], plain["recs"]):
+                    if (a["sampled"], a["edited_layers"]) != (
+                            b["sampled"], b["edited_layers"]) or abs(
+                            a["train_loss"] - b["train_loss"]) > 1e-4:
+                        raise AssertionError(f"mesh {name} {agg}: {a} vs "
+                                             f"{b}")
+                if not (tr.client_ranks == pt.client_ranks).all():
+                    raise AssertionError(f"mesh {name} {agg}: ranks differ")
+                err = _adapters_close(tr.server.global_lora,
+                                      pt.server.global_lora, rounds,
+                                      tr.fcfg.local_steps, tr.ocfg.peak_lr)
+                if not err["within_tol"]:
+                    raise AssertionError(f"mesh {name} {agg}: global adapters"
+                                         f" {err}")
+            res[name] = {"walls": r["walls"], "launches": r["launches"],
+                         "collectives": r["collectives"],
+                         "losses": [x["train_loss"] for x in r["recs"]],
+                         **err}
+        out[agg] = res
+    return out
+
+
+def _mesh_serve(meshes: dict, held: dict, *, dtype: str) -> dict:
+    """qwen2-0.5b (``dtype``) serving ``MESH_SERVE_REQUESTS`` requests
+    through ``lora_backend="grouped"`` on every mesh of ``meshes`` and
+    unmeshed: the same tokens, request for request, and two BGMV launches
+    a LoRA site a layer for every serve/prefill call."""
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import grouped_lora_matmul as glm
+    from repro_torch.models.transformer import init_params
+
+    cfg = get_config("qwen2-0.5b")
+    params = init_params(cfg, seed=0, dtype=dtype)
+    adapters = make_adapters(cfg, np.random.default_rng(5), N_TENANTS)
+    reqs = make_requests(cfg, np.random.default_rng(6), MESH_SERVE_REQUESTS,
+                         gen_len=MESH_SERVE_GEN)
+    toks, out = {}, {}
+    for name, mesh in [("unmeshed", None)] + list(meshes.items()):
+        eng, _ = make_engine(cfg, params, adapters, backend="grouped",
+                             mesh=mesh)
+        if mesh is not None:
+            mesh.reset_collectives()
+        glm.reset_launches()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        done = eng.run([dataclasses.replace(q) for q in reqs])
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        toks[name] = [d["tokens"].tolist() for d in
+                      sorted(done, key=lambda d: d["uid"])]
+        out[name] = {"wall_s": wall, "launches": _bgmv_held([eng], name),
+                     "steps": eng.steps,
+                     "collectives": ({} if mesh is None else {
+                         f"{op}.{ax}": n for (op, ax), n in
+                         mesh.collectives.items()})}
+        del eng
+    for name in meshes:
+        if toks[name] != toks["unmeshed"]:
+            bad = sum(a != b for a, b in zip(toks[name], toks["unmeshed"]))
+            raise AssertionError(f"mesh serve {name} ({dtype}): tokens of "
+                                 f"{bad} requests differ from unmeshed")
+    return out
+
+
+def _mesh_rank(rank: int, world: int, rdv: str, out_path: str,
+               parts: tuple) -> None:
+    """One rank of the mesh phase (spawned): NCCL over ``world`` cards,
+    the kernel entry points held (``_held_kernels``), then ``parts``; rank
+    0 writes the record to ``out_path``."""
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.launch.mesh import Mesh, init_distributed
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    init_distributed(init_method=f"file://{rdv}", world_size=world,
+                     rank=rank)
+    held = _held_kernels()
+    res = {}
+    try:
+        for part in parts:
+            t0 = time.perf_counter()
+            if part == "rounds":
+                if world == 1:
+                    meshes = {"client(1)": Mesh((1,), ("client",)),
+                              "client x model(1x1)": Mesh(
+                                  (1, 1), ("client", "model"))}
+                    res[part] = _mesh_rounds(meshes, held, exact=True)
+                elif world == 2:      # n_sample 3 pads to 4 over 2 ranks
+                    res[part] = _mesh_rounds(
+                        {"client(2), n_sample 3": Mesh((2,), ("client",))},
+                        held, exact=False, sample_rate=0.3)
+                else:
+                    res[part] = _mesh_rounds(
+                        {"client x model(2x2)": Mesh((2, 2), (
+                            "client", "model"))}, held, exact=False)
+            elif part == "serve":
+                n = world
+                meshes = {f"data({n})": Mesh((n,), ("data",)),
+                          f"data x model(1x{n})": Mesh((1, n),
+                                                        ("data", "model"))}
+                # split over n > 1 ranks, a GEMM sees other shapes (16 / n
+                # slot rows, the model axis's columns), and bf16 rounds
+                # them otherwise: a near tie can flip a greedy token (3 of
+                # 12 requests differed on 2 x 8 slot rows of two H100s),
+                # so those engines serve f32 weights
+                res[part if n == 1 else part + ".f32"] = _mesh_serve(
+                    meshes, held, dtype="bfloat16" if n == 1 else "float32")
+            res.setdefault("wall_s", {})[part] = time.perf_counter() - t0
+        res["held"] = {k: dict(v, shapes=sorted(v["shapes"]))
+                       for k, v in held.items()}
+        if rank == 0:
+            with open(out_path, "w") as f:
+                json.dump(res, f, default=float)
+    finally:
+        dist.destroy_process_group()
+
+
+def _spawn_mesh(world: int, parts: tuple) -> dict:
+    """Run ``_mesh_rank`` on ``world`` cards (spawned processes, a
+    rendezvous file under ``build/``); a failing rank fails the phase."""
+    import torch.multiprocessing as mp
+
+    out_dir = os.path.join(ROOT, "build")
+    os.makedirs(out_dir, exist_ok=True)
+    tag = f"mesh-{os.getpid()}-{world}"
+    rdv = os.path.join(out_dir, f"{tag}.rdv")
+    out_path = os.path.join(out_dir, f"{tag}.json")
+    for p in (rdv, out_path):
+        if os.path.exists(p):
+            os.unlink(p)
+    ctx = mp.start_processes(_mesh_rank, args=(world, rdv, out_path, parts),
+                             nprocs=world, join=False, start_method="spawn")
+    end = time.monotonic() + MESH_TIMEOUT_S
+    while not ctx.join(timeout=max(end - time.monotonic(), 1.0)):
+        if time.monotonic() > end:
+            for p in ctx.processes:
+                p.kill()
+            raise TimeoutError(f"mesh ranks ({world}) still running after "
+                               f"{MESH_TIMEOUT_S} s")
+    with open(out_path) as f:
+        res = json.load(f)
+    for p in (rdv, out_path):
+        if os.path.exists(p):
+            os.unlink(p)
+    return res
+
+
+def _print_mesh(world: int, res: dict) -> None:
+    for agg, r in res.get("rounds", {}).items():
+        for name, v in r.items():
+            if name == "unmeshed_walls":
+                continue
+            print(f"mesh ({world} ranks): {agg} on {name}: losses "
+                  f"{[round(x, 6) for x in v['losses']]}, walls "
+                  f"{[round(w, 3) for w in v['walls']]} s (unmeshed "
+                  f"{[round(w, 3) for w in r['unmeshed_walls']]} s), "
+                  f"global max err {v['max_abs_err']:.3e}"
+                  f"{' (bit for bit)' if v.get('bit_equal') else ''}, "
+                  f"launches {v['launches']}, collectives {v['collectives']}",
+                  flush=True)
+    for part in ("serve", "serve.f32"):
+        for name, v in res.get(part, {}).items():
+            print(f"mesh ({world} ranks): {part} qwen2-0.5b on {name}: "
+                  f"tokens equal to unmeshed, {v['steps']} steps, "
+                  f"{v['wall_s']:.2f} s, BGMV launches {v['launches']}, "
+                  f"collectives {v['collectives']}", flush=True)
+    for k, v in res["held"].items():
+        print(f"mesh ({world} ranks): {k} held against its plain version at "
+              f"{v['held']} launches, max err {v['max_abs_err']:.3e}, shapes "
+              f"{v['shapes']}", flush=True)
+
+
+def phase_mesh(dev_name: str) -> dict:
+    """The meshed rounds and serving over NCCL: world size 1 on one card
+    (every mesh code path; each run equal to the unmeshed one bit for
+    bit), and with 4 cards or more also the 2x2 round and, on 2 cards, the
+    padded client mesh, the 2-slot and the tensor-parallel serving mesh.
+    Every launch of BGMV, ``dim_agg`` and ``dim_agg_trimmed`` in the
+    meshed runs is held against its plain version."""
+    import gc
+
+    import torch
+
+    gc.collect()
+    torch.cuda.empty_cache()          # the ranks share the card's memory
+    n_dev = torch.cuda.device_count()
+    out = {"devices": n_dev, "one": _spawn_mesh(1, ("rounds", "serve"))}
+    _print_mesh(1, out["one"])
+    if n_dev >= 4:
+        out["four"] = _spawn_mesh(4, ("rounds",))
+        _print_mesh(4, out["four"])
+        out["two"] = _spawn_mesh(2, ("rounds", "serve"))
+        _print_mesh(2, out["two"])
+    print(f"mesh: the multi-rank part {'ran' if n_dev >= 4 else 'did not run'}"
+          f" ({n_dev} device{'s' if n_dev != 1 else ''}; it needs 4)",
+          flush=True)
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -3583,10 +3959,27 @@ def main() -> int:
     cli = timed("cli", phase_cli)
     families = timed("families", phase_families)
     vision = timed("vision", phase_vision, dev_name)
+    meshed = timed("mesh", phase_mesh, dev_name)
     print("phase wall s: " + ", ".join(f"{k} {v:.1f}"
                                        for k, v in phase_s.items()),
           flush=True)
 
+    # the mesh phase's launches on its meshed runs (one card), per kernel;
+    # each was held against its plain version as it ran
+    one = meshed["one"]
+    mesh_launches = {
+        "grouped_lora_matmul": sum(
+            v["launches"] for k, v in one["serve"].items()
+            if k != "unmeshed"),
+        **{key: sum(v["launches"][key] for k, v in one["rounds"][agg].items()
+                    if k != "unmeshed_walls")
+           for key, agg in (("dim_agg", "fedilora_kernel"),
+                            ("dim_agg_trimmed", "fedilora_trimmed_kernel"))}}
+    if not all(mesh_launches.values()) or any(
+            one["held"][k]["held"] < 1 for k in mesh_launches):
+        raise AssertionError(f"the mesh phase did not launch and hold every "
+                             f"kernel of its path: {mesh_launches}, "
+                             f"{one['held']}")
     cases = kern["cases"]
     # headline: the decode step's shape and dtypes on the serve path
     head = next(c for c in cases if (c["M"], c["N"]) == (16, 896)
@@ -3599,7 +3992,9 @@ def main() -> int:
         "path_launches": {"serve": served["launches"],
                           "slo": slo["launches"],
                           **{f"families.{k}": v["launches"]
-                             for k, v in families.items()}},
+                             for k, v in families.items()},
+                          "mesh": mesh_launches["grouped_lora_matmul"]},
+        "mesh": meshed["one"]["held"]["grouped_lora_matmul"],
         "max_abs_err": max(c["max_abs_err"]
                            for c in cases + kern["family_cases"]),
         "max_err_f32": max(c["max_abs_err"] for c in cases
@@ -3626,13 +4021,15 @@ def main() -> int:
                     "timelines": timelines["launches"]["dim_agg"],
                     "population": population["launches"]["dim_agg"],
                     "checkpoint": ckpt["launches"]["dim_agg"],
-                    "vision": vision["launches"]["dim_agg"]},
+                    "vision": vision["launches"]["dim_agg"],
+                    "mesh": mesh_launches["dim_agg"]},
         "dim_agg_trimmed": {
             "train_agreement": train_agree["fedilora_trimmed_kernel"][
                 "launches"]["dim_agg_trimmed"],
             "faults": faulted["launches"]["dim_agg_trimmed"],
             "population": population["launches"]["dim_agg_trimmed"],
-            "vision": vision["launches"]["dim_agg_trimmed"]}}
+            "vision": vision["launches"]["dim_agg_trimmed"],
+            "mesh": mesh_launches["dim_agg_trimmed"]}}
     for kernel, paths in path_launches.items():
         if not all(paths.values()):
             raise AssertionError(f"{kernel} was not launched on every path "
@@ -3653,6 +4050,7 @@ def main() -> int:
             "source": "src/repro_torch/kernels/csrc/dim_agg.cu",
             "replaces": f"src/repro/kernels/dim_agg.py:{line}",
             "launches": launches, "path_launches": path_launches[name],
+            "mesh": one["held"][name],
             "max_abs_err": max(c["max_abs_err"] for c in mine),
             "ms": h["ms"], "plain_ms": h["plain_ms"],
             "library_ms": h["library_ms"],
@@ -3724,7 +4122,8 @@ def main() -> int:
                    "faults": faulted, "timelines": timelines,
                    "population": population, "flora": flora,
                    "checkpoint": ckpt, "eval_ref": eval_ref, "cli": cli,
-                   "families": families, "vision": vision},
+                   "families": families, "vision": vision,
+                   "mesh": meshed},
                   f, indent=1, default=float)
     print(json.dumps({"kernels": records}))
     print(smi)

@@ -181,7 +181,7 @@ def _save_federated_impl(dirpath: str, trainer) -> None:
                                 for c in trainer.clients]
     if trainer.fcfg.aggregator == "flora":
         save_pytree(os.path.join(dirpath, "base_params.npz"),
-                    trainer.base_params)
+                    trainer.base_params_whole())
     with open(os.path.join(dirpath, "meta.json"), "w") as f:
         json.dump(meta, f)
 
@@ -237,7 +237,7 @@ def _load_federated_impl(dirpath: str, trainer) -> None:
         trainer._ranks_dev = torch.tensor(trainer.client_ranks, device=dev)
     base = os.path.join(dirpath, "base_params.npz")
     if os.path.exists(base):                     # FLoRA's folded base weights
-        trainer.base_params = _to_device(load_pytree(base), dev)
+        trainer.set_base_params(_to_device(load_pytree(base), dev))
     trainer._global_version = meta.get("global_version", 0)
     trainer._async_tick = meta.get("async_tick", 0)
     trainer._pending = None

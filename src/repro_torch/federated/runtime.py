@@ -65,9 +65,20 @@ the reference's ``jax.random`` draws.
 
 ``evaluate_personalized(vmapped=False)`` and ``generation_scores(
 cached=False)`` are the reference arguments: the per-client host loop,
-and the decode that re-runs the full forward for every token.  Device
-meshes are not ported (``NotImplementedError``).  The trainer runs on the
-CUDA device unless ``device="cpu"`` is passed.
+and the decode that re-runs the full forward for every token.
+
+``mesh=`` (or its alias ``client_mesh=``) runs the trainer on every rank
+of a ``repro_torch.launch.mesh.Mesh``: a 1-D mesh splits the sampled
+clients over its axis, a 2-D ``(client, "model")`` mesh also runs each
+client group's local training tensor-parallel over ``"model"`` (the
+dense and prefix-VLM attention stacks; ``launch/fedround.py``).  Every
+rank draws the same cohorts and faults, keeps the same whole client state
+and global, and holds the base weights as its tensor-parallel pieces
+(whole on a 1-D mesh).  The population evaluation splits the clients
+over the client axis when they divide it, and warns and runs every client
+on every rank otherwise.  A mesh and the paged store exclude each other.
+The trainer runs on the CUDA device unless ``device="cpu"`` is passed
+(on a mesh: the mesh's device).
 """
 
 from __future__ import annotations
@@ -75,6 +86,7 @@ from __future__ import annotations
 import collections
 import dataclasses
 import time
+import warnings
 from typing import Any
 
 import numpy as np
@@ -95,12 +107,15 @@ from repro_torch.launch.fedround import (_make_local_train,
                                          make_buffer_merge_step,
                                          make_client_update_step,
                                          make_round_engine, stack_trees)
+from repro_torch.launch.mesh import Mesh
 from repro_torch.launch.steps import (make_eval_step, make_greedy_generate,
                                       make_population_eval)
 from repro_torch.metrics import corpus_scores
 from repro_torch.models import transformer as T
 from repro_torch.models.config import ModelConfig
+from repro_torch.models.tensor_parallel import TensorParallel
 from repro_torch.optim import OptimizerConfig
+from repro_torch.sharding import round_mesh_axes
 from repro_torch.telemetry import Telemetry
 
 Tree = Any
@@ -200,21 +215,35 @@ class FederatedTrainer:
     ``T.init_params`` from ``seed`` on ``device``).  ``device``: ``None``
     means CUDA and raises without it.  The global and per-client adapters
     start from seeded torch generators; to start from a reference
-    trainer's state use ``repro_torch.interop.load_reference_state``."""
+    trainer's state use ``repro_torch.interop.load_reference_state``.
+
+    ``mesh`` / ``client_mesh`` (one of them): a round mesh (module
+    docstring); ``base_params`` are then whole, and the trainer cuts them
+    to its rank's pieces at first use."""
 
     def __init__(self, model_cfg: ModelConfig, fed_cfg: FederatedConfig,
                  opt_cfg: OptimizerConfig, client_train: list[dict],
                  client_eval: list[dict], global_test: dict,
                  base_params: Tree | None = None, seed: int = 0,
-                 mesh=None, telemetry: Telemetry | None = None,
-                 device=None):
-        if mesh is not None:
-            raise NotImplementedError("the port's trainer runs on one "
-                                      "device; round meshes are not ported")
-        self.device = resolve_device(device)
+                 client_mesh=None, mesh=None,
+                 telemetry: Telemetry | None = None, device=None):
+        if mesh is not None and client_mesh is not None:
+            raise ValueError("pass either mesh= or client_mesh=, not both")
         self.mcfg = model_cfg
         self.fcfg = fed_cfg
         self.ocfg = opt_cfg
+        self._round_step = None          # the fused round, built on first use
+        self._client_update_step = None
+        self._pop_eval_cache: dict = {}
+        self._gen_cache: dict = {}
+        self._base_tp = None             # the split base_params are cut by
+        self.client_mesh = mesh if mesh is not None else client_mesh
+        self.device = resolve_device(device)
+        if self.client_mesh is not None:
+            if self.device.type != self.client_mesh.device.type:
+                raise ValueError(f"the trainer's device {self.device} is not "
+                                 f"the mesh's ({self.client_mesh.device})")
+            self.device = self.client_mesh.device
         self.global_test = global_test
         self.base_params = (base_params if base_params is not None else
                             T.init_params(model_cfg, seed=seed,
@@ -289,19 +318,12 @@ class FederatedTrainer:
                     [pad_rows(d[kk], n_max) for d in client_train])).to(
                         self.device)
                 for kk in keys}
-        self._round_step = None          # the fused round, built on first use
-        self._local_train = None         # run_round_reference's, lazy
-        self._eval_loss = make_eval_step(model_cfg,
-                                         lora_scale=self.lora_scale)
-        self._gen_cache: dict = {}
-        self._pop_eval_cache: dict = {}
         self.rng = np.random.default_rng(seed)
         self.history: list[dict] = []
         # pipelined rounds: the enqueued round whose record is not fetched
         self._pending: tuple | None = None
         self._last_slots = None           # bank slots of the last paged cohort
         # buffered async state
-        self._client_update_step = None
         self._merge_step = None
         self._inflight: list[dict] = []   # dispatched updates not retired
         self._buffer: list[dict] = []     # retired updates awaiting a merge
@@ -443,8 +465,78 @@ class FederatedTrainer:
                 fc.num_clients, n, replace=False))
         return sorted(int(k) for k in self.rng.choice(ids, n, replace=False))
 
+    # ---------------------------------------------------------------- mesh
+    @property
+    def client_mesh(self):
+        return self._client_mesh
+
+    @client_mesh.setter
+    def client_mesh(self, m):
+        """A new mesh drops the built round steps and evaluation steps
+        (their cohort padding and tensor-parallel split are fixed when
+        they are built); the base weights are re-cut at the next use."""
+        if m is not None and self.fcfg.paged:
+            raise NotImplementedError(
+                "paged=True with a round mesh is not supported — page the "
+                "population or shard the cohort, not both")
+        if m is not None and not isinstance(m, Mesh):
+            raise TypeError(f"a round mesh is a repro_torch.launch.mesh.Mesh,"
+                            f" got {type(m).__name__}")
+        if not hasattr(self, "_client_mesh") or self._client_mesh is not m:
+            self._round_step = None
+            self._client_update_step = None
+            self._local_train = None
+            self._pop_eval_cache = {}
+            self._gen_cache = {}
+            tp = None
+            if m is not None and round_mesh_axes(m)[1] is not None:
+                tp = TensorParallel(self.mcfg, m)
+            self._tp = tp
+            self._eval_loss = make_eval_step(
+                self.mcfg, lora_scale=self.fcfg.lora_alpha
+                / self.fcfg.global_rank, tp=tp)
+        self._client_mesh = m
+
+    @property
+    def mesh(self):
+        """The round mesh (alias of ``client_mesh``)."""
+        return self.client_mesh
+
+    @mesh.setter
+    def mesh(self, m):
+        self.client_mesh = m
+
+    def _place_mesh_state(self) -> None:
+        """Hold the base weights as the current mesh's pieces: this rank's
+        tensor-parallel pieces on a 2-D mesh (``TensorParallel.
+        shard_params``), whole otherwise — re-joining the pieces of an
+        earlier mesh first.  Every other piece of state is whole on every
+        rank.  Idempotent."""
+        if self._base_tp is self._tp:
+            return
+        params = self.base_params
+        if self._base_tp is not None:
+            params = self._base_tp.unshard_params(params)
+        if self._tp is not None:
+            params = self._tp.shard_params(params)
+        self.base_params, self._base_tp = params, self._tp
+
+    def set_base_params(self, params: Tree, *, split: bool = False) -> None:
+        """Adopt base weights on the trainer's device: whole, or with
+        ``split`` this rank's pieces for the trainer's mesh (e.g.
+        ``interop.params_from_numpy(..., mesh=trainer.mesh)``)."""
+        self.base_params = params
+        self._base_tp = self._tp if split else None
+
+    def base_params_whole(self) -> Tree:
+        """The base weights whole (the pieces of every rank joined)."""
+        if self._base_tp is None:
+            return self.base_params
+        return self._base_tp.unshard_params(self.base_params)
+
     # --------------------------------------------------------------- round
     def _get_round_step(self):
+        self._place_mesh_state()
         if self._round_step is None:
             fc = self.fcfg
             self._round_step = make_round_engine(
@@ -453,7 +545,8 @@ class FederatedTrainer:
                 hetlora_beta=fc.hetlora_beta,
                 hetlora_prune_gamma=fc.hetlora_prune_gamma,
                 clip=fc.clip_norm or None, trim=fc.trim_frac,
-                faults=self.fault_schedule is not None)
+                faults=self.fault_schedule is not None,
+                mesh=self.client_mesh, n_sample=self._n_sample)
         return self._round_step
 
     def _dispatch(self, name: str, fn, *args, **kw):
@@ -665,13 +758,15 @@ class FederatedTrainer:
 
     # ------------------------------------------------------------ async
     def _get_client_update_step(self):
+        self._place_mesh_state()
         if self._client_update_step is None:
             fc = self.fcfg
             self._client_update_step = make_client_update_step(
                 self.mcfg, self.ocfg, lora_scale=self.lora_scale,
                 r_g=self.lcfg.rank, edit=fc.edit, aggregator=fc.aggregator,
                 hetlora_prune_gamma=fc.hetlora_prune_gamma,
-                faults=self.fault_schedule is not None)
+                faults=self.fault_schedule is not None,
+                mesh=self.client_mesh, n_sample=self._n_sample)
         return self._client_update_step
 
     def _get_merge_step(self):
@@ -872,9 +967,11 @@ class FederatedTrainer:
         flora = fc.aggregator == "flora"
         sampled = self._sample_clients()
         r_g = self.lcfg.rank
+        self._place_mesh_state()
         if self._local_train is None:
             self._local_train = _make_local_train(
-                self.mcfg, self.ocfg, lora_scale=self.lora_scale, r_g=r_g)
+                self.mcfg, self.ocfg, lora_scale=self.lora_scale, r_g=r_g,
+                tp=self._tp)
         reinit = self.flora_reinit(self.server.round, sampled) if flora \
             else None
         edited_layers, losses, client_lora = [], [], {}
@@ -940,7 +1037,7 @@ class FederatedTrainer:
             lora_scale=self.lora_scale, clip=fc.clip_norm or None,
             trim=fc.trim_frac, **kw)
         if base_delta is not None:                    # FLoRA
-            apply_weight_deltas(self.base_params, base_delta)
+            apply_weight_deltas(self.base_params, base_delta, self._tp)
             global_new = reinit[1]
         self.server.global_lora = global_new
         self.server.round += 1
@@ -959,6 +1056,7 @@ class FederatedTrainer:
         """Loss and accuracy of the global adapter on the first 64 global
         test rows and, with ``generate``, BLEU/RSUM of its greedy captions
         for the first ``n``."""
+        self._place_mesh_state()
         m = self._dispatch("eval_loss", self._eval_loss, self.base_params,
                            self.server.global_lora,
                            self._eval_batch(self.global_test))
@@ -981,6 +1079,7 @@ class FederatedTrainer:
         ``generate`` per client), the same numbers client by client."""
         w = np.asarray([c.size for c in self.clients], np.float64)
         w = w / w.sum()
+        self._place_mesh_state()
         if not vmapped:
             accs, losses, bleus, rsums = [], [], [], []
             for c in self.clients:
@@ -1024,13 +1123,26 @@ class FederatedTrainer:
             cap_start, gen_len = _mask_decode_bounds(np.concatenate(
                 [np.asarray(c.eval_data["loss_mask"])[:gen_rows[k]]
                  for k, c in enumerate(self.clients)]))
-        key = (rows, loss_n, n, cap_start, gen_len)
+        # split the clients over the mesh's client axis (each group
+        # evaluates its block, tensor-parallel on a 2-D mesh) when they
+        # divide it; otherwise every rank evaluates every client
+        K = len(self.clients)
+        mesh = self.client_mesh
+        sharded = (mesh is not None
+                   and K % mesh.shape[round_mesh_axes(mesh)[0]] == 0)
+        if mesh is not None and not sharded:
+            warnings.warn(
+                f"client mesh {mesh} unusable for the population eval (need "
+                f"a client axis whose size divides K={K}); running "
+                "unsharded", stacklevel=2)
+        key = (rows, loss_n, n, cap_start, gen_len, sharded)
         fn = self._pop_eval_cache.get(key)
         if fn is None:
             fn = make_population_eval(
                 self.mcfg, lora_scale=self.lora_scale, cap_start=cap_start,
                 gen_len=gen_len, loss_rows=min(loss_n, rows),
-                gen_rows=min(n, rows), generate=generate)
+                gen_rows=min(n, rows), generate=generate,
+                mesh=mesh if sharded else None, tp=self._tp)
             self._pop_eval_cache[key] = fn
 
         def _sweep(ids, lora):
@@ -1041,7 +1153,6 @@ class FederatedTrainer:
                                  lora, batch)
             return {kk: v.cpu().numpy() for kk, v in res.items()}
 
-        K = len(self.clients)
         if self.store is None:
             fetched = _sweep(range(K), self.stacked_lora)
         else:
@@ -1077,9 +1188,12 @@ class FederatedTrainer:
 
     @torch.no_grad()
     def _next_logits(self, base_params, toks, lora, pos: int, image):
-        """Logits [B, V] at position ``pos`` of a full forward."""
-        logits, _ = T.forward(self.mcfg, base_params, toks, lora=lora,
-                              lora_scale=self.lora_scale, vision=image)
+        """Logits [B, V] at position ``pos`` of a full forward (on a 2-D
+        mesh, this rank's vocabulary columns)."""
+        tp = self._tp
+        logits, _ = T.forward(self.mcfg, base_params, toks,
+                              lora=lora if tp is None else tp.local_lora(lora),
+                              lora_scale=self.lora_scale, vision=image, tp=tp)
         return logits[:, pos]
 
     def generation_scores(self, lora, data: dict, n: int = 32,
@@ -1093,6 +1207,7 @@ class FederatedTrainer:
         labels = np.asarray(data["labels"][:n])
         loss_mask = np.asarray(data["loss_mask"][:n])
         cap_start, gen_len = _mask_decode_bounds(loss_mask)
+        self._place_mesh_state()
         image = (torch.from_numpy(np.asarray(data["image"][:n])).to(
             self.device) if "image" in data else None)
         if cached:
@@ -1101,7 +1216,7 @@ class FederatedTrainer:
             if fn is None:
                 fn = make_greedy_generate(
                     self.mcfg, lora_scale=self.lora_scale,
-                    cap_start=cap_start, gen_len=gen_len)
+                    cap_start=cap_start, gen_len=gen_len, tp=self._tp)
                 self._gen_cache[key] = fn
             toks = torch.from_numpy(tokens[:, :cap_start + 1]).to(self.device)
             gen = self._dispatch("generate", fn, self.base_params, lora, toks,
@@ -1115,7 +1230,7 @@ class FederatedTrainer:
             lg = self._dispatch("next_logits", self._next_logits,
                                 self.base_params, toks, lora, cap_start + t,
                                 image)
-            nxt = lg.argmax(-1)
+            nxt = lg.argmax(-1) if self._tp is None else self._tp.argmax(lg)
             cols.append(nxt)                  # fetched once, below
             # a window ending at the sequence's end decodes its last token
             # past the buffer: nothing reads it back

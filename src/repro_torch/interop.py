@@ -41,12 +41,24 @@ def _tree(tree, **kw):
 
 
 def params_from_numpy(cfg: ModelConfig, tree: dict[str, Any], *,
-                      device=None) -> dict[str, Any]:
+                      device=None, mesh=None) -> dict[str, Any]:
     """The reference's parameter tree for ``cfg`` → the port's, on
     ``device`` (``None`` = CUDA).  Every leaf keeps the dtype the reference
     gave it: under a bf16 config the MoE router and Mamba's ``A_log``,
-    ``D`` and ``dt_bias`` stay f32."""
-    return _tree(tree, device=resolve_device(device))
+    ``D`` and ``dt_bias`` stay f32.  ``mesh`` (with a ``"model"`` axis):
+    this rank's tensor-parallel pieces
+    (``repro_torch.models.tensor_parallel.TensorParallel.shard_params``);
+    each piece is cut on the host, so no rank holds the whole tree on its
+    device."""
+    device = resolve_device(device)
+    if mesh is None or "model" not in mesh.axis_names:
+        return _tree(tree, device=device)
+    from repro_torch.models.tensor_parallel import TensorParallel
+    def _to(t):
+        return ({k: _to(v) for k, v in t.items()} if isinstance(t, dict)
+                else t.to(device))
+
+    return _to(TensorParallel(cfg, mesh).shard_params(_tree(tree)))
 
 
 def adapters_from_numpy(tree: dict[str, Any]) -> dict[str, dict]:
@@ -76,7 +88,9 @@ def load_reference_state(trainer, *, base_params, global_lora, prev_global,
     the store's host tier through ``write_client`` (no ``[K, ...]`` stack
     is built; clients left out keep the port's own lazy init).  The
     reference's init draws come from ``jax.random``, which torch cannot
-    reproduce; everything after the init is the port's own."""
+    reproduce; everything after the init is the port's own.  On a mesh
+    every rank calls this with the same trees and keeps its own pieces of
+    the base weights."""
     if trainer.store is None and (stacked_lora is None
                                   or client_lora is not None):
         raise ValueError("a resident trainer takes stacked_lora")
@@ -84,8 +98,9 @@ def load_reference_state(trainer, *, base_params, global_lora, prev_global,
         raise ValueError("a paged trainer takes client_lora (per client), "
                          "never a [K, ...] stack")
     dev = trainer.device
-    trainer.base_params = params_from_numpy(trainer.mcfg, base_params,
-                                            device=dev)
+    trainer.set_base_params(params_from_numpy(trainer.mcfg, base_params,
+                                              device=dev, mesh=trainer.mesh),
+                            split=True)
     trainer.server.global_lora = lora_from_numpy(global_lora, device=dev)
     trainer.server.prev_global = lora_from_numpy(prev_global, device=dev)
     if trainer.store is None:

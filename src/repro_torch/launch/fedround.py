@@ -24,7 +24,22 @@ the cohort's losses, edited-module indices and ranks stay on the device,
 so the round enqueues its work without waiting for the device.  The
 stacked client adapters and ranks are updated IN PLACE (the reference
 returns new buffers from donated ones); the returned dict names the same
-tensors.  Meshes are refused by the trainer.
+tensors.
+
+On a round mesh (``mesh=``, with the static cohort size ``n_sample``; see
+``repro_torch.sharding.round_mesh_axes``) every rank runs the step: the
+cohort is padded to a multiple of the client axis with dummy clients
+(:func:`cohort_pad`: ``p = 0``, metrics sliced off, scatters dropped), each
+client group trains its contiguous block of rows — tensor-parallel over
+``"model"`` on a 2-D mesh (``repro_torch.models.tensor_parallel``) — and the
+trained rows, ranks and metrics are all-gathered over the client axis.
+Every rank then aggregates the whole padded cohort (one ``dim_agg`` or
+``dim_agg_trimmed`` launch for the kernel entries) and scatters it into
+its copy of the stacked state, so every rank holds the same global and the
+same ``[K, ...]`` state bit for bit.  (The reference lays the ``[K, ...]``
+rows out over the client axis; with one process per device that would
+need the cohort's rows fetched from their owners before training, so the
+port keeps the state whole on every rank.)
 
 FLoRA (``aggregator="flora"``) takes a trailing ``reinit`` operand, the
 round's fresh draws ``(client_lora0 [n_s, ...], global_new)`` from the
@@ -57,7 +72,7 @@ can be sampled and trained again before the merge.
 
 from __future__ import annotations
 
-from typing import Callable
+from typing import Callable, NamedTuple
 
 import torch
 
@@ -68,14 +83,18 @@ from repro_torch.core.tree import tree_leaves, tree_map
 from repro_torch.launch.steps import loss_and_grad
 from repro_torch.models.config import ModelConfig
 from repro_torch.optim import OptimizerConfig, make_optimizer
+from repro_torch.sharding import round_mesh_axes
 
 
 def _make_local_train(cfg: ModelConfig, opt_cfg: OptimizerConfig, *,
-                      lora_scale: float, r_g: int) -> Callable:
+                      lora_scale: float, r_g: int, tp=None) -> Callable:
     """One client's local fine-tuning: ``(base_params, lora0, rank,
     batches {key: [steps, B, ...]}) -> (lora1, losses [steps])``, AdamW
     with gradients and iterates projected onto the client's rank
-    subspace, so masked entries stay exactly zero."""
+    subspace, so masked entries stay exactly zero.  ``tp``: the base
+    params are a tensor-parallel rank's pieces; the adapter, its
+    gradients and the optimizer state stay whole and equal on every rank
+    of the axis."""
     opt_init, opt_update = make_optimizer(opt_cfg)
 
     def local_train(base_params, lora0, rank, batches):
@@ -84,7 +103,8 @@ def _make_local_train(cfg: ModelConfig, opt_cfg: OptimizerConfig, *,
         losses = []
         for step in range(batches["tokens"].shape[0]):
             mb = {k: v[step] for k, v in batches.items()}
-            loss, _, g = loss_and_grad(cfg, base_params, lo, mb, lora_scale)
+            loss, _, g = loss_and_grad(cfg, base_params, lo, mb, lora_scale,
+                                       tp=tp)
             g = mask_lora_params(g, rank, r_g)
             lo, opt = opt_update(lo, g, opt)
             lo = mask_lora_params(lo, rank, r_g)
@@ -131,18 +151,136 @@ def stack_trees(trees: list) -> dict:
                    for m in ("A", "B")} for name in trees[0]}
 
 
+def cohort_pad(n_sample: int, mesh) -> int:
+    """The padded cohort size: the next multiple of the mesh's client-axis
+    size (``n_sample`` without a mesh)."""
+    if mesh is None:
+        return n_sample
+    client_ax, _ = round_mesh_axes(mesh)
+    n_client = mesh.shape[client_ax]
+    return -(-n_sample // n_client) * n_client
+
+
+def _pad_cohort(idx, batch_idx, n_pad: int, n_total: int):
+    """Pad ``(idx [n_s], batch_idx [n_s, ...])`` to ``n_pad`` rows of dummy
+    clients, which carry the out-of-range index ``n_total``: gathers read
+    through the clipped copy (the last real client's data: wasted, harmless
+    work) and scatters skip them.  Returns ``(idx, clipped_idx, batch_idx,
+    valid [n_pad])``."""
+    n_s = idx.shape[0]
+    if n_pad > n_s:
+        idx = torch.cat([idx, idx.new_full((n_pad - n_s,), n_total)])
+        batch_idx = torch.cat([batch_idx, batch_idx.new_zeros(
+            (n_pad - n_s,) + tuple(batch_idx.shape[1:]))])
+    valid = torch.arange(n_pad, device=idx.device) < n_s
+    return idx, idx.clamp(0, n_total - 1), batch_idx, valid
+
+
+def _pad_fault(fault, n_pad: int):
+    """The fault operand's vectors padded with neutral entries, so dummy
+    rows read as healthy non-participants (``kept`` indexes real rows and
+    stays as it is)."""
+    n = fault["keep"].shape[0]
+    if n >= n_pad:
+        return fault
+    ext = lambda v, fill: torch.cat([v, v.new_full((n_pad - n,), fill)])
+    return dict(fault, keep=ext(fault["keep"], 1.0),
+                weight=ext(fault["weight"], 1.0),
+                scale=ext(fault["scale"], 1.0), nan=ext(fault["nan"], 0.0))
+
+
+class _RoundMesh(NamedTuple):
+    mesh: object
+    client_axis: str
+    tp: object                      # TensorParallel on a 2-D mesh, or None
+    n_pad: int                      # the padded cohort
+
+
+def _round_mesh(cfg: ModelConfig, mesh, n_sample):
+    """The round's plan on ``mesh`` (``None`` without one).  Raises on a
+    mesh without ``n_sample`` and on a malformed mesh."""
+    if mesh is None:
+        return None
+    n_pad = cohort_pad(n_sample, mesh) if n_sample is not None else None
+    if n_pad is None:
+        raise ValueError(
+            "a round mesh needs n_sample (the static sampled-cohort size) "
+            "to split the client axis — pass n_sample=... or drop mesh=")
+    client_ax, model_ax = round_mesh_axes(mesh)
+    tp = None
+    if model_ax is not None:
+        from repro_torch.models.tensor_parallel import TensorParallel
+        tp = TensorParallel(cfg, mesh)
+    return _RoundMesh(mesh, client_ax, tp, n_pad)
+
+
+def _gather_rows(mesh, axis: str, tensors: list) -> list:
+    """All-gather each tensor's leading (row) axis over ``axis``, one
+    all-gather per dtype: the rows are packed side by side, gathered and
+    unpacked in coordinate order."""
+    out: list = [None] * len(tensors)
+    by_dtype: dict = {}
+    for i, t in enumerate(tensors):
+        by_dtype.setdefault(t.dtype, []).append(i)
+    for ids in by_dtype.values():
+        m = tensors[ids[0]].shape[0]
+        flat = torch.cat([tensors[i].reshape(m, -1) for i in ids], dim=1)
+        got = mesh.all_gather(flat, axis)
+        at = 0
+        for i in ids:
+            t = tensors[i]
+            w = t[0].numel()
+            out[i] = got[:, at:at + w].reshape(
+                (got.shape[0],) + tuple(t.shape[1:])).contiguous()
+            at += w
+    return out
+
+
+def _meshed_phases(client_phases, plan: _RoundMesh):
+    """Run ``client_phases`` on this rank's client group's block of the
+    padded cohort and gather every group's rows: ``(base_params,
+    global_lora, prev_global, ranks_s [n_pad], batches(rows), lora0) ->
+    (lora1, ranks_s, metrics)`` over all ``n_pad`` rows, equal on every
+    rank.  ``batches`` is a function of the block's row range, so each
+    rank gathers only its own minibatches."""
+    mesh, client_ax = plan.mesh, plan.client_axis
+    m = plan.n_pad // mesh.shape[client_ax]
+    c = mesh.coord(client_ax)
+    rows = slice(c * m, (c + 1) * m)
+
+    def phases(base_params, global_lora, prev_global, ranks_s, batches,
+               lora0=None):
+        if lora0 is not None:
+            lora0 = tree_map(lambda x: x[rows], lora0)
+        lora1, r1, met = client_phases(base_params, global_lora, prev_global,
+                                       ranks_s[rows], batches(rows), lora0)
+        names = [(n, k) for n in lora1 for k in ("A", "B")]
+        mkeys = sorted(met)
+        got = _gather_rows(mesh, client_ax,
+                           [lora1[n][k] for n, k in names] + [r1]
+                           + [met[k] for k in mkeys])
+        out = {n: {} for n in lora1}
+        for (n, k), t in zip(names, got):
+            out[n][k] = t
+        at = len(names)
+        return out, got[at], dict(zip(mkeys, got[at + 1:]))
+
+    return phases
+
+
 def _make_client_phases(cfg: ModelConfig, opt_cfg: OptimizerConfig, *,
                         lora_scale: float, r_g: int, edit: EditConfig,
                         edit_active: bool, prune_active: bool,
-                        hetlora_prune_gamma: float) -> Callable:
+                        hetlora_prune_gamma: float, tp=None) -> Callable:
     """The per-client half shared by the fused round and the async client
     update: ``(base_params, global_lora, prev_global, ranks_s, batches,
     lora0=None) -> (lora1, ranks_s, metrics)``, redistribute → train →
     prune → edit over the cohort; ``lora1`` is a freshly stacked tree.
     With ``lora0`` (FLoRA's restart draws, stacked) client ``i`` starts
-    from row ``i`` masked to its rank instead of the global adapter."""
+    from row ``i`` masked to its rank instead of the global adapter.
+    ``tp``: local training runs tensor-parallel (a 2-D round mesh)."""
     local_train = _make_local_train(cfg, opt_cfg, lora_scale=lora_scale,
-                                    r_g=r_g)
+                                    r_g=r_g, tp=tp)
 
     def client_phases(base_params, global_lora, prev_global, ranks_s,
                       batches, lora0=None):
@@ -200,10 +338,15 @@ def _sanitize_rows(tree, finite: torch.Tensor):
         torch.zeros((), dtype=x.dtype, device=x.device)), tree)
 
 
-def _scatter(stacked_lora, ranks, idx, lora1, ranks_s, kept=None) -> None:
+def _scatter(stacked_lora, ranks, idx, lora1, ranks_s, kept=None,
+             n_s: int | None = None) -> None:
     """Write the cohort's rows back into the persistent stacked state in
     place; with ``kept``, only those cohort rows (dropped clients keep
-    their pre-round state)."""
+    their pre-round state); with ``n_s``, only the first ``n_s`` rows (a
+    padded cohort's dummies never write back)."""
+    if n_s is not None and n_s < idx.shape[0]:
+        idx, ranks_s = idx[:n_s], ranks_s[:n_s]
+        lora1 = tree_map(lambda x: x[:n_s], lora1)
     if kept is not None:
         idx = idx[kept]
         ranks_s = ranks_s[kept]
@@ -222,7 +365,8 @@ def make_round_engine(cfg: ModelConfig, opt_cfg: OptimizerConfig, *,
                       hetlora_prune_gamma: float = 0.0,
                       clip: float | None = None,
                       trim: float = 0.0,
-                      faults: bool = False) -> Callable:
+                      faults: bool = False, mesh=None,
+                      n_sample: int | None = None) -> Callable:
     """Build the fused round over the trainer's persistent stacked state::
 
         round_step(base_params, stacked_lora[K,...], global_lora,
@@ -253,17 +397,26 @@ def make_round_engine(cfg: ModelConfig, opt_cfg: OptimizerConfig, *,
     With ``faults=False`` the signature and the work are the fault-free
     round's.  FLoRA adds the keyword operand ``reinit`` (module docstring)
     and the output key ``base_params`` (the input tree, updated in
-    place)."""
+    place).
+
+    ``mesh`` (with ``n_sample``): the round runs on every rank of a round
+    mesh (module docstring); ``base_params`` are then the rank's pieces
+    (``TensorParallel.shard_params`` on a 2-D mesh) and every other
+    operand is whole."""
     if aggregator not in AG.AGGREGATORS:
         raise ValueError(f"unknown aggregator {aggregator!r}; have "
                          f"{sorted(AG.AGGREGATORS)}")
     edit = edit or EditConfig()
     flora = aggregator == "flora"
+    plan = _round_mesh(cfg, mesh, n_sample)
+    tp = plan.tp if plan else None
     client_phases = _make_client_phases(
         cfg, opt_cfg, lora_scale=lora_scale, r_g=r_g, edit=edit,
         edit_active=edit.enabled and not flora,
         prune_active=aggregator == "hetlora" and hetlora_prune_gamma > 0,
-        hetlora_prune_gamma=hetlora_prune_gamma)
+        hetlora_prune_gamma=hetlora_prune_gamma, tp=tp)
+    if plan:
+        client_phases = _meshed_phases(client_phases, plan)
 
     @torch.no_grad()
     def round_step(base_params, stacked_lora, global_lora, prev_global,
@@ -271,19 +424,42 @@ def make_round_engine(cfg: ModelConfig, opt_cfg: OptimizerConfig, *,
                    reinit=None):
         if flora and reinit is None:
             raise ValueError("FLoRA's round needs its reinit draws")
-        ranks_s = ranks[idx]
-        sizes_s = sizes[idx]
-        # device-side batch gather: [n_s, steps, B, ...]
-        batches = {k: v[idx[:, None, None], batch_idx]
-                   for k, v in data.items()}
+        n_s = idx.shape[0]
+        lora0 = reinit[0] if flora else None
+        if plan:
+            idx, gidx, batch_idx, valid = _pad_cohort(
+                idx, batch_idx, plan.n_pad, ranks.shape[0])
+            # device-side batch gather of a row block: [rows, steps, B, ...]
+            batches = lambda rows: {k: v[gidx[rows, None, None],
+                                         batch_idx[rows]]
+                                    for k, v in data.items()}
+            if lora0 is not None:          # dummies restart from row 0
+                rows0 = torch.arange(idx.shape[0], device=idx.device)
+                lora0 = tree_map(lambda x: x[rows0.clamp(max=n_s - 1)],
+                                 lora0)
+            ranks_s = ranks[gidx]
+            # dummy rows carry no weight, so no aggregator sees them
+            sizes_s = torch.where(valid, sizes[gidx], torch.zeros_like(
+                sizes[gidx]))
+        else:
+            valid = None
+            # device-side batch gather: [n_s, steps, B, ...]
+            batches = {k: v[idx[:, None, None], batch_idx]
+                       for k, v in data.items()}
+            ranks_s = ranks[idx]
+            sizes_s = sizes[idx]
         lora1, ranks_s, metrics = client_phases(
             base_params, global_lora, prev_global, ranks_s, batches,
-            lora0=reinit[0] if flora else None)
+            lora0=lora0)
+        if plan:
+            metrics = {k: v[:n_s] for k, v in metrics.items()}
 
         agg_lora, kw, health, kept = lora1, {}, None, None
         if aggregator in ("fedilora_clip", "fedilora_clip_kernel"):
             kw["anchor"] = global_lora     # clipped-away mass stays here
         if faults:
+            if plan:
+                fault = _pad_fault(fault, idx.shape[0])
             agg_lora = _wire(lora1, fault)
             finite = _rows_finite(agg_lora)
             agg_lora = _sanitize_rows(agg_lora, finite)
@@ -292,7 +468,10 @@ def make_round_engine(cfg: ModelConfig, opt_cfg: OptimizerConfig, *,
             kw["fallback"] = global_lora
             kept = fault["kept"]
             keep, weight = fault["keep"] > 0, fault["weight"] > 0
-            alive = (keep & weight).float()
+            alive = keep & weight
+            if valid is not None:          # dummy rows are nobody's health
+                alive = alive & valid
+            alive = alive.float()
             if AG._clip_active(clip):
                 norms = AG.client_update_norms(agg_lora)
                 part = alive * fin
@@ -309,11 +488,12 @@ def make_round_engine(cfg: ModelConfig, opt_cfg: OptimizerConfig, *,
             aggregator, agg_lora, ranks_s, p, hetlora_beta=hetlora_beta,
             lora_scale=lora_scale, clip=clip, trim=trim, **kw)
 
-        _scatter(stacked_lora, ranks, idx, lora1, ranks_s, kept)
+        _scatter(stacked_lora, ranks, idx, lora1, ranks_s, kept, n_s)
         out = {"stacked_lora": stacked_lora, "ranks": ranks,
                "prev_global": global_lora, "metrics": metrics}
         if base_delta is not None:                      # FLoRA
-            out["base_params"] = apply_weight_deltas(base_params, base_delta)
+            out["base_params"] = apply_weight_deltas(base_params, base_delta,
+                                                     tp)
             global_new = reinit[1]
         out["global_lora"] = global_new
         if health is not None:
@@ -328,7 +508,8 @@ def make_client_update_step(cfg: ModelConfig, opt_cfg: OptimizerConfig, *,
                             edit: EditConfig | None = None,
                             aggregator: str = "fedbuff",
                             hetlora_prune_gamma: float = 0.0,
-                            faults: bool = False) -> Callable:
+                            faults: bool = False, mesh=None,
+                            n_sample: int | None = None) -> Callable:
     """Client half of the fused round for the buffered-async timeline::
 
         client_update_step(base_params, stacked_lora[K,...], global_lora,
@@ -341,27 +522,46 @@ def make_client_update_step(cfg: ModelConfig, opt_cfg: OptimizerConfig, *,
     ``update`` (a freshly stacked tree), ``update_ranks`` and
     ``update_sizes`` go to the server's buffer.  With ``faults=True``
     dropped clients are not scattered back and the ``update`` rows carry
-    the wire corruption (the merge guard catches the poison)."""
+    the wire corruption (the merge guard catches the poison).  ``mesh`` /
+    ``n_sample``: as in :func:`make_round_engine`; the buffered rows are
+    the real clients' (dummies sliced off)."""
     if aggregator == "flora":
         raise ValueError("flora updates base weights; it has no "
                          "buffered-async client half")
     edit = edit or EditConfig()
+    plan = _round_mesh(cfg, mesh, n_sample)
     client_phases = _make_client_phases(
         cfg, opt_cfg, lora_scale=lora_scale, r_g=r_g, edit=edit,
         edit_active=edit.enabled,
         prune_active=aggregator == "hetlora" and hetlora_prune_gamma > 0,
-        hetlora_prune_gamma=hetlora_prune_gamma)
+        hetlora_prune_gamma=hetlora_prune_gamma,
+        tp=plan.tp if plan else None)
+    if plan:
+        client_phases = _meshed_phases(client_phases, plan)
 
     @torch.no_grad()
     def client_update_step(base_params, stacked_lora, global_lora,
                            prev_global, ranks, sizes, data, idx, batch_idx,
                            fault=None):
-        ranks_s = ranks[idx]
+        n_s = idx.shape[0]
         sizes_s = sizes[idx]
-        batches = {k: v[idx[:, None, None], batch_idx]
-                   for k, v in data.items()}
+        if plan:
+            idx, gidx, batch_idx, _ = _pad_cohort(idx, batch_idx, plan.n_pad,
+                                                  ranks.shape[0])
+            batches = lambda rows: {k: v[gidx[rows, None, None],
+                                         batch_idx[rows]]
+                                    for k, v in data.items()}
+            ranks_s = ranks[gidx]
+        else:
+            batches = {k: v[idx[:, None, None], batch_idx]
+                       for k, v in data.items()}
+            ranks_s = ranks[idx]
         lora1, ranks_s, metrics = client_phases(base_params, global_lora,
                                                 prev_global, ranks_s, batches)
+        if plan:                           # dummies never reach the buffer
+            idx, ranks_s = idx[:n_s], ranks_s[:n_s]
+            lora1 = tree_map(lambda x: x[:n_s], lora1)
+            metrics = {k: v[:n_s] for k, v in metrics.items()}
         update, kept = lora1, None
         if faults:
             update = _wire(lora1, fault)
@@ -419,9 +619,11 @@ def make_buffer_merge_step(*, aggregator: str = "fedbuff",
     return merge_step
 
 
-def apply_weight_deltas(params, deltas: dict):
+def apply_weight_deltas(params, deltas: dict, tp=None):
     """Fold FLoRA's dense deltas ``{spec: [L, out, in]}`` into the base
-    weights (``[L, in, out]``) IN PLACE; returns ``params``."""
+    weights (``[L, in, out]``) IN PLACE; returns ``params``.  ``tp``: the
+    weights are a tensor-parallel rank's pieces, and each takes its piece
+    of the delta."""
     for name, delta in deltas.items():
         if name.startswith("enc."):
             node = params["encoder"]["blocks"]["s0"]
@@ -433,9 +635,12 @@ def apply_weight_deltas(params, deltas: dict):
         for p in path[:-1]:
             node = node[p]
         w = node[path[-1]]
-        w.add_(delta.transpose(-1, -2).to(w.dtype))
+        upd = delta.transpose(-1, -2)
+        if tp is not None:
+            upd = tp.shard_site_delta(name, upd)
+        w.add_(upd.to(w.dtype))
     return params
 
 
-__all__ = ["apply_weight_deltas", "make_buffer_merge_step",
+__all__ = ["apply_weight_deltas", "cohort_pad", "make_buffer_merge_step",
            "make_client_update_step", "make_round_engine", "stack_trees"]

@@ -9,6 +9,12 @@ engine's slot state IN PLACE; each returns the objects it updated, so the
 call sites read like the reference's.  Nothing here reads a value back to
 the host.
 
+On a mesh with a ``"model"`` axis the steps take ``tp``, a
+``repro_torch.models.tensor_parallel.TensorParallel``: the base params are
+this rank's pieces, the adapters whole (cut to the rank's columns by
+``tp.local_lora``), and the loss, its gradients and the greedy tokens those
+of the whole model (``tp.reduce_lora_grads``, ``tp.argmax``).
+
 The serving steps take the adapter bank scan-major, ``{spec: {"A": [L, G,
 r, in], "B": [L, G, out, r]}}`` (``AdapterStore.scan_stack``), the layout
 the decode loop indexes per layer.
@@ -25,18 +31,23 @@ from repro_torch.models.config import ModelConfig
 from repro_torch.optim import OptimizerConfig, make_optimizer
 
 
-def loss_and_grad(cfg: ModelConfig, params, lora, batch, lora_scale: float):
+def loss_and_grad(cfg: ModelConfig, params, lora, batch, lora_scale: float,
+                  tp=None):
     """(loss, metrics, grads) of ``T.loss_fn`` w.r.t. the adapter leaves
-    only; the base weights take no gradient."""
+    only; the base weights take no gradient.  With ``tp`` the gradients
+    are the whole model's, on every rank of the axis."""
     names = [(n, m) for n in sorted(lora) for m in ("A", "B")]
     leaves = {n: {m: lora[n][m].detach().requires_grad_(True)
                   for m in ("A", "B")} for n in lora}
     with torch.enable_grad():
-        loss, metrics = T.loss_fn(cfg, params, leaves, batch, lora_scale)
+        fwd = leaves if tp is None else tp.local_lora(leaves)
+        loss, metrics = T.loss_fn(cfg, params, fwd, batch, lora_scale, tp=tp)
         flat = torch.autograd.grad(loss, [leaves[n][m] for n, m in names])
     grads = {n: {} for n in lora}
     for (n, m), g in zip(names, flat):
         grads[n][m] = g
+    if tp is not None:
+        tp.reduce_lora_grads(grads)
     return loss.detach(), {k: v.detach() for k, v in metrics.items()}, grads
 
 
@@ -71,33 +82,37 @@ def make_train_step(cfg: ModelConfig, opt_cfg: OptimizerConfig, *,
     return train_step
 
 
-def make_eval_step(cfg: ModelConfig, *, lora_scale: float) -> Callable:
+def make_eval_step(cfg: ModelConfig, *, lora_scale: float,
+                   tp=None) -> Callable:
     """``(params, lora, batch) -> metrics`` ({"loss", "aux", "acc"})."""
 
     @torch.no_grad()
     def eval_step(params, lora, batch):
-        _, metrics = T.loss_fn(cfg, params, lora, batch, lora_scale)
+        lo = lora if tp is None else tp.local_lora(lora)
+        _, metrics = T.loss_fn(cfg, params, lo, batch, lora_scale, tp=tp)
         return metrics
 
     return eval_step
 
 
-def make_serve_step(cfg: ModelConfig, *, lora_scale: float) -> Callable:
+def make_serve_step(cfg: ModelConfig, *, lora_scale: float,
+                    tp=None) -> Callable:
     """``(params, lora, cache, tokens, pos, embeds=None) -> (logits [B, V],
     cache)``: one-token decode, one adapter for the batch; ``embeds``
     [B, 1, d] replaces the token embedding (the vision prefix streams
-    through it)."""
+    through it).  With ``tp``, ``lora`` is the rank's local adapter and
+    the logits its vocabulary columns."""
 
     @torch.no_grad()
     def serve_step(params, lora, cache, tokens, pos, embeds=None):
         return T.decode_step(cfg, params, cache, tokens, pos, lora=lora,
-                             lora_scale=lora_scale, embeds=embeds)
+                             lora_scale=lora_scale, embeds=embeds, tp=tp)
 
     return serve_step
 
 
 def make_greedy_generate(cfg: ModelConfig, *, lora_scale: float,
-                         cap_start: int, gen_len: int) -> Callable:
+                         cap_start: int, gen_len: int, tp=None) -> Callable:
     """KV-cached greedy caption generation: ``(params, lora, tokens[B, S],
     vision=None) -> gen int [B, gen_len]``.
 
@@ -110,8 +125,10 @@ def make_greedy_generate(cfg: ModelConfig, *, lora_scale: float,
     builds its layers' static vision K/V, with the adapter.  A stack with a
     Mamba layer (a recurrent state) or an MoE layer (whose capacity depends
     on the tokens routed together) streams the prompt one position at a
-    time, as the reference does."""
-    serve_step = make_serve_step(cfg, lora_scale=lora_scale)
+    time, as the reference does.  ``tp``: the params are a rank's pieces
+    and the cache holds its heads; every rank returns the same tokens."""
+    serve_step = make_serve_step(cfg, lora_scale=lora_scale, tp=tp)
+    argmax = (lambda lg: lg.argmax(-1)) if tp is None else tp.argmax
     stream = "mamba" in cfg.pattern or cfg.moe is not None
     prefix = cfg.family == "vlm" and cfg.vision_mode == "prefix"
     cross = cfg.family == "vlm" and cfg.vision_mode == "cross"
@@ -119,7 +136,11 @@ def make_greedy_generate(cfg: ModelConfig, *, lora_scale: float,
     @torch.no_grad()
     def generate(params, lora, tokens, vision=None):
         B = tokens.shape[0]
-        xs = params["embed"][tokens[:, :cap_start + 1]]          # [B, P, d]
+        if tp is None:
+            xs = params["embed"][tokens[:, :cap_start + 1]]      # [B, P, d]
+        else:
+            lora = tp.local_lora(lora)
+            xs = tp.embed(params["embed"], tokens[:, :cap_start + 1])
         n_prefix = 0
         if vision is not None and prefix:
             pre = vision.to(xs.dtype) @ params["vision_proj"]
@@ -138,32 +159,67 @@ def make_greedy_generate(cfg: ModelConfig, *, lora_scale: float,
                            torch.zeros(B, dtype=torch.long,
                                        device=xs.device),
                            adapters=lora, lora_scale=lora_scale,
-                           logits=False)
+                           logits=False, tp=tp)
         logits, cache = serve_step(params, lora, cache, None, P - 1,
                                    embeds=xs[:, P - 1:])
-        toks = [logits.argmax(-1)]
+        toks = [argmax(logits)]
         for t in range(1, gen_len):
             logits, cache = serve_step(params, lora, cache, toks[-1],
                                        n_prefix + cap_start + t)
-            toks.append(logits.argmax(-1))
+            toks.append(argmax(logits))
         return torch.stack(toks, dim=1)
 
     return generate
 
 
+def _population_mesh_tools(cfg: ModelConfig, mesh, tp=None):
+    """``(client_axis, tp)`` of a population sweep over ``mesh``: the
+    client axis the sweep splits its clients over (``None`` without a
+    mesh) and, on a 2-D ``(client, "model")`` mesh, the tensor-parallel
+    split each client group runs (``tp``, when given, serves a sweep whose
+    clients do not split).  A client's decode cache holds its rank's K/V
+    heads: ``sharding.cache_spec`` would split its feature dimension over
+    ``"model"``, which puts the attention's contraction on the mesh."""
+    if mesh is None:
+        return None, tp
+    from repro_torch.models.tensor_parallel import TensorParallel
+    from repro_torch.sharding import round_mesh_axes
+    client_ax, model_ax = round_mesh_axes(mesh)
+    return client_ax, (None if model_ax is None
+                       else tp or TensorParallel(cfg, mesh))
+
+
+def _client_rows(mesh, client_ax, K: int) -> range:
+    """The clients of this rank's group: a contiguous block of K / n."""
+    if client_ax is None:
+        return range(K)
+    n = mesh.shape[client_ax]
+    if K % n:
+        raise ValueError(f"{K} clients do not divide over the mesh's "
+                         f"{client_ax!r} axis ({n})")
+    c = mesh.coord(client_ax)
+    return range(c * (K // n), (c + 1) * (K // n))
+
+
 def make_population_generate(cfg: ModelConfig, *, lora_scale: float,
-                             cap_start: int, gen_len: int) -> Callable:
+                             cap_start: int, gen_len: int,
+                             mesh=None, tp=None) -> Callable:
     """Greedy decode for every client of a stacked population:
     ``(params, stacked_lora[K,...], tokens[K, B, S], vision[K, B, ...]?)
-    -> gen [K, B, gen_len]`` (one client after another)."""
+    -> gen [K, B, gen_len]`` (one client after another).  ``mesh``: a
+    round mesh whose client axis splits the clients (each group decodes
+    its block, and the blocks are gathered; on a 2-D mesh each group runs
+    tensor-parallel); ``tp`` alone: every client here, tensor-parallel."""
+    client_ax, tp = _population_mesh_tools(cfg, mesh, tp)
     gen = make_greedy_generate(cfg, lora_scale=lora_scale,
-                               cap_start=cap_start, gen_len=gen_len)
+                               cap_start=cap_start, gen_len=gen_len, tp=tp)
 
     def population_generate(params, stacked_lora, tokens, vision=None):
-        return torch.stack([
+        out = torch.stack([
             gen(params, _client(stacked_lora, k), tokens[k],
                 None if vision is None else vision[k])
-            for k in range(tokens.shape[0])])
+            for k in _client_rows(mesh, client_ax, tokens.shape[0])])
+        return out if client_ax is None else mesh.all_gather(out, client_ax)
 
     return population_generate
 
@@ -177,25 +233,31 @@ def make_population_eval(cfg: ModelConfig, *, lora_scale: float,
                          gen_len: int | None = None,
                          loss_rows: int | None = None,
                          gen_rows: int | None = None,
-                         generate: bool = True) -> Callable:
+                         generate: bool = True, mesh=None,
+                         tp=None) -> Callable:
     """The personalized evaluation sweep: ``(params, stacked_lora[K,...],
     batch {key: [K, rows, ...]}) -> {"loss" [K], "acc" [K], "gen" [K,
     gen_rows, gen_len]?}`` — eval loss over the first ``loss_rows`` rows
-    and greedy decode of the first ``gen_rows``, client by client."""
+    and greedy decode of the first ``gen_rows``, client by client.
+    ``mesh`` / ``tp``: as in :func:`make_population_generate`; every rank
+    returns every client's results."""
+    client_ax, tp = _population_mesh_tools(cfg, mesh, tp)
     gen_fn = None
     if generate:
         gen_fn = make_greedy_generate(cfg, lora_scale=lora_scale,
-                                      cap_start=cap_start, gen_len=gen_len)
+                                      cap_start=cap_start, gen_len=gen_len,
+                                      tp=tp)
 
     @torch.no_grad()
     def population_eval(params, stacked_lora, batch):
         outs = []
-        for k in range(batch["tokens"].shape[0]):
+        for k in _client_rows(mesh, client_ax, batch["tokens"].shape[0]):
             lora = _client(stacked_lora, k)
+            lo = lora if tp is None else tp.local_lora(lora)
             b = {key: v[k] for key, v in batch.items()}
             lb = b if loss_rows is None else \
                 {key: v[:loss_rows] for key, v in b.items()}
-            _, m = T.loss_fn(cfg, params, lora, lb, lora_scale)
+            _, m = T.loss_fn(cfg, params, lo, lb, lora_scale, tp=tp)
             out = {"loss": m["loss"], "acc": m["acc"]}
             if gen_fn is not None:
                 rows = slice(None) if gen_rows is None else slice(0, gen_rows)
@@ -203,7 +265,11 @@ def make_population_eval(cfg: ModelConfig, *, lora_scale: float,
                 out["gen"] = gen_fn(params, lora, b["tokens"][rows],
                                     None if vis is None else vis[rows])
             outs.append(out)
-        return {key: torch.stack([o[key] for o in outs]) for key in outs[0]}
+        res = {key: torch.stack([o[key] for o in outs]) for key in outs[0]}
+        if client_ax is not None:
+            res = {key: mesh.all_gather(v, client_ax)
+                   for key, v in res.items()}
+        return res
 
     return population_eval
 
@@ -211,20 +277,24 @@ _BACKENDS = {"gather": False, "grouped": True}
 
 
 def make_multi_adapter_serve_step(cfg: ModelConfig, *, lora_scale: float,
-                                  lora_backend: str = "gather") -> Callable:
+                                  lora_backend: str = "gather",
+                                  tp=None) -> Callable:
     """One-token decode where every batch row uses its own adapter:
 
         ``(params, adapters, adapter_idx[B], cache, embeds[B, d],
            pos[B]) -> (logits [B, V], cache)``
 
     ``lora_backend``: ``"gather"`` gathers each row's (A, B) pair per LoRA
-    site in plain PyTorch; ``"grouped"`` runs the BGMV kernel."""
+    site in plain PyTorch; ``"grouped"`` runs the BGMV kernel.  With
+    ``tp`` the bank holds the rank's ``B`` columns (``tp.bank_b``) and
+    the logits are its vocabulary columns."""
     kernel = _BACKENDS[lora_backend]
 
     def multi_serve_step(params, adapters, adapter_idx, cache, embeds, pos):
         return T.decode_chunk(cfg, params, cache, embeds[:, None, :], pos,
                               adapters=adapters, adapter_idx=adapter_idx,
-                              lora_scale=lora_scale, lora_kernel=kernel)
+                              lora_scale=lora_scale, lora_kernel=kernel,
+                              tp=tp)
 
     return multi_serve_step
 
@@ -232,7 +302,8 @@ def make_multi_adapter_serve_step(cfg: ModelConfig, *, lora_scale: float,
 def make_chunked_prefill_step(cfg: ModelConfig, *, lora_scale: float,
                               chunk: int, n_prefix: int = 0,
                               lora_backend: str = "gather",
-                              flash: bool | None = None) -> Callable:
+                              flash: bool | None = None,
+                              tp=None) -> Callable:
     """Chunked multi-token prefill over a ServingEngine's slot state:
 
         ``(params, adapters, state, cache) -> (state, cache)``
@@ -252,7 +323,8 @@ def make_chunked_prefill_step(cfg: ModelConfig, *, lora_scale: float,
         Sp = state["ptoks"].shape[1]
         tok_pos = (offs - n_prefix).clamp(0, Sp - 1)
         toks = torch.gather(state["ptoks"], 1, tok_pos)
-        embeds = params["embed"][toks]                            # [B, C, d]
+        embeds = (params["embed"][toks] if tp is None          # [B, C, d]
+                  else tp.embed(params["embed"], toks))
         if n_prefix:
             rows = torch.arange(B, device=pos.device)[:, None]
             pre = state["vis"][rows, offs.clamp(0, n_prefix - 1)]
@@ -261,7 +333,7 @@ def make_chunked_prefill_step(cfg: ModelConfig, *, lora_scale: float,
         T.decode_chunk(cfg, params, cache, embeds, pos, adapters=adapters,
                        adapter_idx=state["aidx"], lora_scale=lora_scale,
                        valid=valid, lora_kernel=kernel, logits=False,
-                       chunked=flash)
+                       chunked=flash, tp=tp)
         pos += valid.sum(1)
         return state, cache
 

@@ -103,8 +103,10 @@ def _qkv(params, x, kv_src, cfg: ModelConfig, lora, lora_scale,
          lora_idx=None, lora_kernel: bool = False):
     """``lora_idx`` [B]: LoRA entries are stacked banks [G, ...] and row
     ``b`` applies adapter ``lora_idx[b]`` (``lora_kernel`` selects the BGMV
-    kernel)."""
-    h, kv, hd = cfg.num_heads, cfg.num_kv_heads, cfg.resolved_head_dim
+    kernel).  The head counts come from the weights' widths, so a rank of
+    a tensor-parallel mesh computes its own heads."""
+    hd = cfg.resolved_head_dim
+    h, kv = params["wq"].shape[-1] // hd, params["wk"].shape[-1] // hd
     lq = lora.get("wq") if lora else None
     lv = lora.get("wv") if lora else None
     if lora_idx is None:
@@ -255,18 +257,24 @@ def multihead_attention(q, k, v, *, causal: bool, window: int = 0,
 
 def attention_forward(params, x, cfg: ModelConfig, *, kind: str, lora=None,
                       lora_scale: float = 1.0, positions=None, pad_mask=None,
-                      kv_src=None):
+                      kv_src=None, tp=None):
     """Full-sequence attention sublayer (the caller adds the residual).
     ``kind``: "attn" (global causal), "attn_local" (sliding window) or
     "cross_attn": non-causal, no RoPE, keys and values from ``kv_src``
     [B, P, kv_in] through ``cross_kv``, ``pad_mask`` [B, P] over them, and
-    the output scaled by ``tanh(gate)`` when the params carry a gate."""
+    the output scaled by ``tanh(gate)`` when the params carry a gate.
+    ``tp`` (a ``TensorParallel`` that splits attention): ``params`` and
+    ``lora`` hold this rank's heads, and ``wo``'s partial sums are added
+    over the mesh."""
     if kind == "cross_attn":
         q = _q(params, x, cfg, lora, lora_scale)
         k, v = cross_kv(params, kv_src, cfg, lora, lora_scale)
         out = multihead_attention(q, k, v, causal=False, pad_mask=pad_mask)
         return _gated(params, out.reshape(x.shape[0], x.shape[1], -1)
                       @ params["wo"])
+    split = tp is not None and tp.attn
+    if split:
+        x = tp.copy(x)
     q, k, v = _qkv(params, x, x, cfg, lora, lora_scale)
     B, S = x.shape[0], x.shape[1]
     if positions is None:
@@ -278,7 +286,8 @@ def attention_forward(params, x, cfg: ModelConfig, *, kind: str, lora=None,
                               softcap=cfg.attn_logit_softcap,
                               q_pos=positions, k_pos=positions,
                               pad_mask=pad_mask)
-    return out.reshape(B, S, -1) @ params["wo"]
+    y = out.reshape(B, S, -1) @ params["wo"]
+    return tp.reduce(y) if split else y
 
 
 def _q(params, x, cfg: ModelConfig, lora, lora_scale, lora_idx=None,
@@ -330,9 +339,10 @@ def attention_decode_batch(params, x, cache, cfg: ModelConfig, *, kind: str,
                            pos, valid=None, lora=None,
                            lora_scale: float = 1.0, lora_idx=None,
                            lora_kernel: bool = False,
-                           chunked: bool | None = False):
+                           chunked: bool | None = False, tp=None):
     """Multi-token, per-row-position decode — the serving hot path (one-token
-    multi-adapter decode and chunked prefill share it).
+    multi-adapter decode and chunked prefill share it).  ``tp``: as in
+    :func:`attention_forward`; the cache then holds this rank's K/V heads.
 
     ``x``: [B, C, d]; ``pos``: [B] per-row first position; ``valid``:
     optional [B, C] ragged-tail mask (masked positions leave their cache
@@ -352,6 +362,9 @@ def attention_decode_batch(params, x, cache, cfg: ModelConfig, *, kind: str,
         out = multihead_attention(q, cache["k"], cache["v"], causal=False,
                                   pad_mask=cache.get("mask"), chunked=False)
         return _gated(params, out.reshape(B, C, -1) @ params["wo"]), cache
+    split = tp is not None and tp.attn
+    if split:
+        x = tp.copy(x)
     q, k_new, v_new = _qkv(params, x, x, cfg, lora, lora_scale,
                            lora_idx=lora_idx, lora_kernel=lora_kernel)
     q_pos = pos[:, None] + torch.arange(C, device=pos.device)    # [B, C]
@@ -383,7 +396,7 @@ def attention_decode_batch(params, x, cache, cfg: ModelConfig, *, kind: str,
                               chunked=chunked, q_chunk=max(C, 1),
                               kv_chunk=min(512, Smax))
     y = out.reshape(B, C, -1) @ params["wo"]
-    return y, cache
+    return (tp.reduce(y) if split else y), cache
 
 
 def _write_rows(c: torch.Tensor, rows, slots, new, valid) -> None:
@@ -547,8 +560,15 @@ def init_mlp(d: int, ff: int, *, n: int, generator: torch.Generator, device,
     }
 
 
-def mlp_forward(params, x):
-    return (F.silu(x @ params["w1"]) * (x @ params["w3"])) @ params["w2"]
+def mlp_forward(params, x, tp=None):
+    """SwiGLU; ``tp`` (a ``TensorParallel`` that splits the MLP): ``w1`` /
+    ``w3`` hold this rank's ``d_ff`` columns, ``w2`` its rows, and the
+    partial sums are added over the mesh."""
+    if tp is None or not tp.mlp:
+        return (F.silu(x @ params["w1"]) * (x @ params["w3"])) @ params["w2"]
+    x = tp.copy(x)
+    return tp.reduce((F.silu(x @ params["w1"]) * (x @ params["w3"]))
+                     @ params["w2"])
 
 
 def init_moe(cfg: ModelConfig, *, n: int, generator: torch.Generator,

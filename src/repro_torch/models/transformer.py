@@ -194,7 +194,7 @@ def _fold_mamba(mp: dict, lo: dict, lora_scale: float) -> dict:
     return mp
 
 
-def _feed_forward(cfg: ModelConfig, bp: dict, x):
+def _feed_forward(cfg: ModelConfig, bp: dict, x, tp=None):
     """The sublayer's residual feed-forward (MoE or SwiGLU, if any):
     returns (x, aux)."""
     if "moe" in bp:
@@ -203,13 +203,13 @@ def _feed_forward(cfg: ModelConfig, bp: dict, x):
         return x + y, aux
     if "ffn" in bp:
         h2 = L.rms_norm(x, bp["ln2"], cfg.norm_eps)
-        x = x + L.mlp_forward(bp["ffn"], h2)
+        x = x + L.mlp_forward(bp["ffn"], h2, tp)
     return x, None
 
 
 def _run_blocks(cfg: ModelConfig, blocks: Tree, lora: Tree | None, x, *,
                 lora_scale: float, positions, pad_mask=None, vision=None,
-                enc_out=None, enc_mask=None):
+                enc_out=None, enc_mask=None, tp=None):
     """The block stack over [B, S, d]: per block, each pattern sublayer's
     pre-norm mixer (attention, MLA, gated cross-attention over ``vision``
     or Mamba-2), on enc-dec stacks the cross-attention over ``enc_out``
@@ -243,7 +243,7 @@ def _run_blocks(cfg: ModelConfig, blocks: Tree, lora: Tree | None, x, *,
                 y = L.attention_forward(
                     sp["attn"], h, cfg, kind=kind,
                     lora=_sub_lora(lt, f"{pre}.attn"), lora_scale=lora_scale,
-                    positions=positions, pad_mask=pad_mask)
+                    positions=positions, pad_mask=pad_mask, tp=tp)
             x = x + y
             if "dec_cross" in sp:
                 hx = L.rms_norm(x, sp["lnx"], cfg.norm_eps)
@@ -251,7 +251,7 @@ def _run_blocks(cfg: ModelConfig, blocks: Tree, lora: Tree | None, x, *,
                     sp["dec_cross"], hx, cfg, kind="cross_attn",
                     lora=_sub_lora(lt, f"{pre}.dec_cross"),
                     lora_scale=lora_scale, kv_src=enc_out, pad_mask=enc_mask)
-            x, aux = _feed_forward(cfg, sp, x)
+            x, aux = _feed_forward(cfg, sp, x, tp)
             if aux is not None:
                 aux_l = aux_l + aux
         aux_tot = aux_tot + aux_l
@@ -286,14 +286,19 @@ def encode(cfg: ModelConfig, params: Tree, audio, lora=None,
 
 def forward(cfg: ModelConfig, params: Tree, tokens, *, lora=None,
             lora_scale: float = 1.0, vision=None, audio=None, pad_mask=None,
-            audio_mask=None, last_only: bool = False):
+            audio_mask=None, last_only: bool = False, tp=None):
     """Training / prefill forward.  ``vision`` [B, P, vision_dim]: a prefix
     VLM projects it into a P-position prefix ahead of the text; a cross
     VLM's gated cross layers attend to it.  ``audio`` [B, P, audio_dim]
     (enc-dec): the encoder's input, its frames masked by ``audio_mask``.
     Returns (logits [B, S, V] — [B, 1, V] with ``last_only`` —, the MoE
-    aux loss: a 0-d f32 tensor, 0 without MoE layers)."""
-    x = params["embed"][tokens]
+    aux loss: a 0-d f32 tensor, 0 without MoE layers).
+
+    ``tp`` (``repro_torch.models.tensor_parallel.TensorParallel``): the
+    params and ``lora`` are this rank's pieces (``tp.shard_params``,
+    ``tp.local_lora``) and the logits its vocabulary columns."""
+    x = (params["embed"][tokens] if tp is None
+         else tp.embed(params["embed"], tokens))
     B, S = tokens.shape
     positions = torch.arange(S, device=x.device)
     n_prefix = 0
@@ -313,38 +318,46 @@ def forward(cfg: ModelConfig, params: Tree, tokens, *, lora=None,
                          lora_scale=lora_scale, positions=positions,
                          pad_mask=pad_mask,
                          vision=vision if cfg.vision_mode == "cross" else None,
-                         enc_out=enc_out, enc_mask=audio_mask)
+                         enc_out=enc_out, enc_mask=audio_mask, tp=tp)
     x = L.rms_norm(x, params["final_ln"], cfg.norm_eps)
     if n_prefix:
         x = x[:, n_prefix:]
     if last_only:
         x = x[:, -1:]
+    if tp is not None:
+        return tp.logits(x, params), aux
     if cfg.tie_embeddings:
         return x @ params["embed"].T, aux
     return x @ params["unembed"], aux
 
 
 def loss_fn(cfg: ModelConfig, params: Tree, lora: Tree | None, batch: dict,
-            lora_scale: float = 1.0):
+            lora_scale: float = 1.0, tp=None):
     """Masked next-token cross-entropy plus the MoE aux loss.  ``batch``:
     tokens, labels, loss_mask, optional image and image_mask (a zero
     ``image_mask`` row zeroes that example's vision input: the
     missing-modality path) and audio (enc-dec).  Returns (loss + aux,
-    {"loss", "aux", "acc"}), all 0-d f32 tensors."""
+    {"loss", "aux", "acc"}), all 0-d f32 tensors.  ``tp``: as in
+    :func:`forward`; the log-softmax and the argmax then span every rank's
+    vocabulary columns."""
     vision = batch.get("image")
     if vision is not None and "image_mask" in batch:
         vision = (vision * batch["image_mask"][:, None, None]).to(vision.dtype)
     logits, aux = forward(cfg, params, batch["tokens"], lora=lora,
                           lora_scale=lora_scale, vision=vision,
-                          audio=batch.get("audio"))
+                          audio=batch.get("audio"), tp=tp)
     logits = logits.float()
-    logp = F.log_softmax(logits, dim=-1)
     labels = batch["labels"].long()
-    ll = torch.gather(logp, -1, labels[..., None])[..., 0]
+    if tp is None:
+        logp = F.log_softmax(logits, dim=-1)
+        ll = torch.gather(logp, -1, labels[..., None])[..., 0]
+        hit = logits.argmax(-1) == labels
+    else:
+        ll, hit = tp.log_prob(logits, labels)
     mask = batch["loss_mask"].float()
     denom = torch.clamp(mask.sum(), min=1.0)
     loss = -(ll * mask).sum() / denom
-    acc = ((logits.argmax(-1) == labels) * mask).sum() / denom
+    acc = (hit * mask).sum() / denom
     return loss + aux, {"loss": loss, "aux": aux, "acc": acc}
 
 
@@ -379,7 +392,7 @@ def init_cache(cfg: ModelConfig, params: Tree, batch: int, max_len: int, *,
     ``dec_cross.wv`` and the encoder's ``enc.*``), so that the decode with
     that adapter equals the forward."""
     ref = params["embed"]
-    kv, hd, n = cfg.num_kv_heads, cfg.resolved_head_dim, cfg.num_blocks
+    hd, n = cfg.resolved_head_dim, cfg.num_blocks
     cache: dict = {}
     for i, kind in enumerate(cfg.pattern):
         if kind == "cross_attn":
@@ -404,6 +417,8 @@ def init_cache(cfg: ModelConfig, params: Tree, batch: int, max_len: int, *,
             S = max_len
             if kind == "attn_local" and cfg.sliding_window:
                 S = min(max_len, cfg.sliding_window)
+            # the K/V heads of these weights (a tensor-parallel rank's own)
+            kv = params["blocks"][f"s{i}"]["attn"]["wk"].shape[-1] // hd
             shape = (n, batch, S, kv, hd)
             cache[f"s{i}"] = {"k": ref.new_zeros(shape),
                               "v": ref.new_zeros(shape)}
@@ -417,24 +432,30 @@ def init_cache(cfg: ModelConfig, params: Tree, batch: int, max_len: int, *,
 
 
 def decode_step(cfg: ModelConfig, params: Tree, cache: Tree, tokens, pos, *,
-                lora=None, lora_scale: float = 1.0, embeds=None):
+                lora=None, lora_scale: float = 1.0, embeds=None, tp=None):
     """One-token decode with one adapter for the whole batch.  ``tokens``
     int [B] (or ``embeds`` [B, 1, d], which replaces the token embedding —
     the vision prefix streams through it); ``pos``: int, the current
     position.  ``lora`` leaves are [L, ...] (the training layout); on Mamba
     layers it folds into the projections, as the reference's
     ``decode_step`` does.  The cache is updated in place.  Returns (logits
-    f32 [B, V], cache)."""
-    x = embeds if embeds is not None else params["embed"][tokens][:, None, :]
+    f32 [B, V], cache); with ``tp`` (see :func:`decode_chunk`) the logits
+    are this rank's vocabulary columns."""
+    if embeds is not None:
+        x = embeds
+    elif tp is None:
+        x = params["embed"][tokens][:, None, :]
+    else:
+        x = tp.embed(params["embed"], tokens)[:, None, :]
     p = torch.full((x.shape[0],), int(pos), dtype=torch.long, device=x.device)
     return decode_chunk(cfg, params, cache, x, p, adapters=lora,
-                        lora_scale=lora_scale)
+                        lora_scale=lora_scale, tp=tp)
 
 
 def decode_chunk(cfg: ModelConfig, params: Tree, cache: Tree, embeds, pos, *,
                  adapters=None, adapter_idx=None, lora_scale: float = 1.0,
                  valid=None, lora_kernel: bool = False, logits: bool = True,
-                 chunked: bool | None = False):
+                 chunked: bool | None = False, tp=None):
     """Batched multi-adapter decode over ``C`` positions per row — the
     serving hot path (``C = 1``: one-token decode; ``C = chunk``: chunked
     prefill).
@@ -458,7 +479,12 @@ def decode_chunk(cfg: ModelConfig, params: Tree, cache: Tree, embeds, pos, *,
     serves a cross VLM's gated layers and an enc-dec stack's decoder
     cross layers, over the static caches of ``init_cache`` (which must
     carry that adapter's ``cross.wv`` / ``dec_cross.wv`` / ``enc.*``
-    entries); with a bank both families raise, as the reference does."""
+    entries); with a bank both families raise, as the reference does.
+
+    ``tp`` (a ``TensorParallel``, attention stacks): ``params``, the
+    adapters and the cache hold this rank's pieces (its heads, its
+    ``d_ff`` columns, a bank's ``B`` columns at the split sites) and the
+    logits are its vocabulary columns."""
     C = embeds.shape[1]
     if logits and C != 1:
         raise ValueError("logits=True needs C == 1 (prefill discards them)")
@@ -502,7 +528,7 @@ def decode_chunk(cfg: ModelConfig, params: Tree, cache: Tree, embeds, pos, *,
                     sp[mixer], hn, ci, cfg, kind=kind, pos=pos, valid=valid,
                     lora=_sub_lora(lt, f"{pre}.{mixer}"),
                     lora_scale=lora_scale, lora_idx=adapter_idx,
-                    lora_kernel=lora_kernel, chunked=chunked)
+                    lora_kernel=lora_kernel, chunked=chunked, tp=tp)
             h = h + y
             if "dec_cross" in sp:
                 hx = L.rms_norm(h, sp["lnx"], cfg.norm_eps)
@@ -513,10 +539,12 @@ def decode_chunk(cfg: ModelConfig, params: Tree, cache: Tree, embeds, pos, *,
                     lora=_sub_lora(lt, f"{pre}.dec_cross"),
                     lora_scale=lora_scale)
                 h = h + y
-            h, _ = _feed_forward(cfg, sp, h)
+            h, _ = _feed_forward(cfg, sp, h, tp)
     if not logits:
         return None, cache
     x = L.rms_norm(h, params["final_ln"], cfg.norm_eps)
+    if tp is not None:
+        return tp.logits(x[:, 0], params).float(), cache
     if cfg.tie_embeddings:
         out = x[:, 0] @ params["embed"].T
     else:

@@ -14,6 +14,16 @@ here the scan-major bank is the only one.)
   and evicting the least-recently-used unpinned resident when the bank is
   full (nothing is copied out: serving is read-only);
 * :meth:`release` unpins; the adapter stays hot until evicted.
+
+On a serving mesh (``mesh=``, or :meth:`set_mesh`, which a
+``ServingEngine`` calls with its tensor-parallel split) every rank keeps
+the same host copies and pager, so every rank pages the same adapters
+into the same slots.  With a ``"model"`` axis a rank's ``B`` bank holds
+only its own contiguous columns at the column-parallel sites (the BGMV
+kernel takes no views).  The slot axis is not split over ``"data"``, as
+the reference splits it when the slots divide (its ``_bank_sharding``):
+an engine's slot rows on one rank may read any bank slot, so a split
+bank would have to be gathered for every decode step.
 """
 
 from __future__ import annotations
@@ -29,6 +39,7 @@ import torch.nn.functional as F
 
 from repro_torch import resolve_device
 from repro_torch.core.paging import LRUPager
+from repro_torch.launch.mesh import Mesh
 from repro_torch.telemetry import Telemetry
 
 Tree = Any
@@ -62,18 +73,18 @@ class AdapterStore:
     """LRU-paged device bank of per-tenant LoRA adapters.
 
     ``slots``: hot-set size.  ``rank``: the bank's padded rank r_g.
-    ``device``: where the bank lives (``None`` = CUDA; raises without one).
-    The bank keeps the registered adapters' dtype.
-    ``dispatch_count`` tallies ``adapter_load`` page-ins (shared with a
-    ServingEngine's counter)."""
+    ``device``: where the bank lives (``None`` = CUDA; raises without one;
+    on a mesh, the mesh's device).  The bank keeps the registered
+    adapters' dtype.  ``dispatch_count`` tallies ``adapter_load`` page-ins
+    (shared with a ServingEngine's counter).  ``mesh``: a serving mesh
+    (module docstring)."""
 
     def __init__(self, *, slots: int, rank: int, device=None,
                  dispatch_count: collections.Counter | None = None,
                  mesh=None, telemetry: Telemetry | None = None):
-        if mesh is not None:
-            raise NotImplementedError("the port has no multi-device serving "
-                                      "mesh yet")
         self.device = resolve_device(device)
+        self.mesh = None
+        self._tp = None                            # the split B columns
         self.slots = slots
         self.rank = rank
         self._host: dict[Hashable, Tree] = {}      # id -> padded CPU tree
@@ -88,6 +99,37 @@ class AdapterStore:
         self.telemetry = Telemetry(enabled=False)
         if telemetry is not None:
             self.use_telemetry(telemetry)
+        if mesh is not None:
+            self.set_mesh(mesh)
+
+    def set_mesh(self, mesh, tp=None) -> None:
+        """Adopt a serving mesh and, with ``tp`` (the
+        ``TensorParallel`` of the model the bank serves), its split of the
+        ``B`` columns; a bank already built is rebuilt under them from the
+        host copies of its residents."""
+        if not isinstance(mesh, Mesh):
+            raise TypeError(f"a serving mesh is a repro_torch.launch.mesh."
+                            f"Mesh, got {type(mesh).__name__}")
+        if self.device.type != mesh.device.type:
+            raise ValueError(f"the store's device {self.device} is not the "
+                             f"mesh's ({mesh.device})")
+        self.mesh, self._tp, self.device = mesh, tp, mesh.device
+        if self._bank is not None:
+            self._bank = None
+            bank = self.scan_stack
+            for aid in self.resident_ids:
+                self._write(bank, self._pager.lookup(aid), self._host[aid])
+
+    def _cut(self, name: str, part: str, x: torch.Tensor) -> torch.Tensor:
+        """A host leaf ``[L, ...]`` as this rank's bank holds it."""
+        if self._tp is None or part != "B":
+            return x
+        return self._tp.bank_b(name, x)
+
+    def _write(self, bank, slot: int, host: Tree) -> None:
+        for name, entry in bank.items():
+            for p, dst in entry.items():
+                dst[:, slot].copy_(self._cut(name, p, host[name][p]))
 
     def use_telemetry(self, telemetry: Telemetry) -> None:
         """Adopt a telemetry bundle (an engine sharing its own calls this
@@ -193,7 +235,8 @@ class AdapterStore:
                 name: {p: torch.zeros(
                     (x.shape[0], self.slots) + tuple(x.shape[1:]),
                     dtype=x.dtype, device=self.device)
-                    for p, x in entry.items()}
+                    for p, x in ((p, self._cut(name, p, x))
+                                 for p, x in entry.items())}
                 for name, entry in proto.items() if name.startswith("s")}
         return self._bank
 
@@ -217,11 +260,8 @@ class AdapterStore:
             slot, _ = self._pager.assign(adapter_id)
             with self.telemetry.span("adapter_load", cat="dispatch",
                                      adapter=str(adapter_id)):
-                host = self._host[adapter_id]
                 try:
-                    for name, entry in bank.items():
-                        for p, dst in entry.items():
-                            dst[:, slot].copy_(host[name][p])
+                    self._write(bank, slot, self._host[adapter_id])
                 except BaseException:
                     # the slot's rows are not this adapter's: leave the
                     # slot free rather than resident with unwritten rows
@@ -241,7 +281,7 @@ class AdapterStore:
     # ---------------------------------------------------------- constructors
     @classmethod
     def from_trainer(cls, trainer, *, slots: int | None = None, device=None,
-                     dispatch_count=None,
+                     dispatch_count=None, mesh=None,
                      telemetry: Telemetry | None = None) -> "AdapterStore":
         """Register every personalized client adapter of a live
         ``FederatedTrainer`` (ids ``"client0"``, ``"client1"``, ...),
@@ -249,7 +289,7 @@ class AdapterStore:
         host tier)."""
         adapters = trainer.export_adapters()
         store = cls(slots=slots or len(adapters), rank=trainer.lcfg.rank,
-                    device=device, dispatch_count=dispatch_count,
+                    device=device, dispatch_count=dispatch_count, mesh=mesh,
                     telemetry=telemetry)
         for cid, (lora, rank) in adapters.items():
             store.register(cid, lora, rank)
@@ -257,7 +297,7 @@ class AdapterStore:
 
     @classmethod
     def from_checkpoint(cls, dirpath: str, *, slots: int | None = None,
-                        device=None, dispatch_count=None,
+                        device=None, dispatch_count=None, mesh=None,
                         telemetry: Telemetry | None = None) -> "AdapterStore":
         """Register the per-client adapters (ids ``"client{k}"``) of a
         ``save_federated`` checkpoint directory written by either package;
@@ -278,7 +318,8 @@ class AdapterStore:
         # self-pruning can shrink every true rank below it
         r_pad = int(next(iter(loras[ids[0]].values()))["A"].shape[1])
         store = cls(slots=slots or len(ids), rank=r_pad, device=device,
-                    dispatch_count=dispatch_count, telemetry=telemetry)
+                    dispatch_count=dispatch_count, mesh=mesh,
+                    telemetry=telemetry)
         for k in ids:
             store.register(f"client{k}", loras[k], ranks[k])
         return store

@@ -43,6 +43,20 @@ unless a scheduler injects its own).  Sampling (:class:`SamplingConfig`)
 draws Gumbel noise from a counter-based hash of ``(sample_seed, uid,
 position, token)`` on the device: a request's tokens are reproducible
 wherever and whenever it runs, and ``top_k=1`` is greedy.
+
+On a serving mesh (``mesh=``, a ``repro_torch.launch.mesh.Mesh`` with a
+``"data"`` axis) every rank runs the same host loop — admission, paging,
+the position mirrors — while the device state splits: each rank of the
+``"data"`` axis holds a contiguous block of ``max_slots / data`` slot rows
+(their cache, staging buffers and generation buffers) and decodes only
+those; on a ``("data", "model")`` mesh the base weights, the cache's K/V
+heads and the bank's ``B`` columns at the split sites are the rank's
+tensor-parallel pieces (``repro_torch.models.tensor_parallel``), the
+BGMV kernel runs on the local slots and local columns, the greedy token is
+the argmax over every rank's vocabulary columns and sampling draws from
+the gathered logits.  The finished rows' tokens and fault flags are
+all-gathered over ``"data"`` at each retire burst, so every rank completes
+the same requests with the same tokens.
 """
 
 from __future__ import annotations
@@ -59,10 +73,12 @@ import torch
 
 from repro_torch import resolve_device
 from repro_torch.core.paging import AllSlotsPinnedError
+from repro_torch.launch.mesh import Mesh
 from repro_torch.launch.steps import (make_chunked_prefill_step,
                                       make_multi_adapter_serve_step)
 from repro_torch.models import transformer as T
 from repro_torch.models.config import ModelConfig
+from repro_torch.models.tensor_parallel import TensorParallel
 from repro_torch.serving.adapter_store import (AdapterQuarantinedError,
                                                AdapterStore)
 from repro_torch.telemetry import Telemetry
@@ -128,7 +144,9 @@ class ServingEngine:
     streaming (``prefill_chunk=None``).
 
     ``device=None`` means CUDA (raises without one); params are moved there
-    and the store must live there too."""
+    and the store must live there too.  ``mesh``: a serving mesh (module
+    docstring); ``params`` are whole, and the store must be on the same
+    mesh or on none (the engine then gives it its own)."""
 
     def __init__(self, cfg: ModelConfig, params: Tree, store: AdapterStore,
                  *, lora_scale: float, max_slots: int = 8,
@@ -140,9 +158,6 @@ class ServingEngine:
                  sampling: SamplingConfig | None = None,
                  sample_seed: int = 0, mesh=None,
                  telemetry: Telemetry | None = None, device=None):
-        if mesh is not None:
-            raise NotImplementedError("the port has no multi-device serving "
-                                      "mesh yet")
         bad = {k for k in cfg.pattern if k not in ("attn", "attn_local",
                                                    "mamba")}
         if bad or cfg.family == "encdec":
@@ -156,10 +171,48 @@ class ServingEngine:
             raise ValueError("sampling.temperature must be > 0 "
                              "(use sampling=None for greedy)")
         self.device = dev = resolve_device(device)
+        self.mesh = mesh
+        self._tp = None
+        self._rows = range(max_slots)           # this rank's slot rows
+        if mesh is None and store.mesh is not None:
+            raise ValueError(
+                "AdapterStore carries a serving mesh but the engine is "
+                "unsharded — pass the same mesh to ServingEngine too")
+        if mesh is not None:
+            if not isinstance(mesh, Mesh):
+                raise TypeError(f"a serving mesh is a repro_torch.launch."
+                                f"mesh.Mesh, got {type(mesh).__name__}")
+            if "data" not in mesh.axis_names:
+                raise ValueError(
+                    f"serving mesh needs a 'data' axis for the slot "
+                    f"dimension, got axes {tuple(mesh.axis_names)}")
+            n_data = mesh.shape["data"]
+            if max_slots % n_data != 0:
+                raise ValueError(
+                    f"max_slots={max_slots} does not divide over the "
+                    f"mesh's data axis ({n_data} devices)")
+            if store.mesh is not None and store.mesh is not mesh:
+                raise ValueError(
+                    "AdapterStore was built for a different mesh than the "
+                    "engine's — pass the same mesh to both")
+            if dev.type != mesh.device.type:
+                raise ValueError(f"the engine's device {dev} is not the "
+                                 f"mesh's ({mesh.device})")
+            self.device = dev = mesh.device
+            if "model" in mesh.axis_names:
+                self._tp = TensorParallel(cfg, mesh)
+            store.set_mesh(mesh, self._tp)
+            b = max_slots // n_data
+            c = mesh.coord("data")
+            self._rows = range(c * b, (c + 1) * b)
         if store.device != dev:
             raise ValueError(f"AdapterStore lives on {store.device}, the "
                              f"engine on {dev}")
         self.cfg = cfg
+        if self._tp is not None:
+            # frozen base weights: tensor-parallel pieces, never split over
+            # "data" (the slot axis; param_spec_tp)
+            params = self._tp.shard_params(params)
         self.params = params = _to_device(params, dev)
         self.store = store
         self.lora_scale = lora_scale
@@ -201,7 +254,7 @@ class ServingEngine:
                         "(prefill_chunk=None)")
         self.prefill_chunk = prefill_chunk
 
-        B = max_slots
+        B = len(self._rows)                     # the slot rows held here
         self._cache = T.init_cache(cfg, params, B, self.cache_len)
 
         def zeros(*shape, dtype=torch.int64):
@@ -226,13 +279,13 @@ class ServingEngine:
             self._prefill_fn = make_chunked_prefill_step(
                 cfg, lora_scale=lora_scale, chunk=prefill_chunk,
                 n_prefix=self._n_prefix, lora_backend=lora_backend,
-                flash=prefill_flash)
+                flash=prefill_flash, tp=self._tp)
 
-        # host mirrors (scheduling never fetches device state)
-        self._requests: list[Request | None] = [None] * B
-        self._pos_h = np.zeros((B,), np.int64)
-        self._plen_h = np.zeros((B,), np.int64)
-        self._tlen_h = np.zeros((B,), np.int64)
+        # host mirrors of every slot (scheduling never fetches device state)
+        self._requests: list[Request | None] = [None] * max_slots
+        self._pos_h = np.zeros((max_slots,), np.int64)
+        self._plen_h = np.zeros((max_slots,), np.int64)
+        self._tlen_h = np.zeros((max_slots,), np.int64)
         self.queue: collections.deque[Request] = collections.deque()
         self.completed: list[dict] = []
         self._admit_failed: list[dict] = []
@@ -272,9 +325,11 @@ class ServingEngine:
         cfg, n_prefix = self.cfg, self._n_prefix
         Sp, max_gen = self.max_prompt, self.max_gen
         sampling = self.sampling
+        tp = self._tp
         serve = make_multi_adapter_serve_step(cfg, lora_scale=self.lora_scale,
-                                              lora_backend=self.lora_backend)
-        rows = torch.arange(self.max_slots, device=self.device)
+                                              lora_backend=self.lora_backend,
+                                              tp=tp)
+        rows = torch.arange(len(self._rows), device=self.device)
         vocab = torch.arange(cfg.vocab_size, device=self.device)
 
         def serve_step(params, adapters, state, cache):
@@ -285,7 +340,8 @@ class ServingEngine:
             tok_pos = (pos - n_prefix).clamp(0, Sp - 1)
             prompt_tok = torch.gather(state["ptoks"], 1, tok_pos[:, None])[:, 0]
             tok = torch.where(pos < plen, prompt_tok, last)
-            embeds = params["embed"][tok]                       # [B, d]
+            embeds = (params["embed"][tok] if tp is None        # [B, d]
+                      else tp.embed(params["embed"], tok))
             if n_prefix:
                 pre = state["vis"][rows, pos.clamp(0, n_prefix - 1)]
                 embeds = torch.where((pos < n_prefix)[:, None],
@@ -295,10 +351,15 @@ class ServingEngine:
                               pos)
             # ---- fault containment: non-finite rows flagged, token 0 ------
             bad = ~torch.isfinite(logits).all(dim=-1)
+            if tp is not None:                  # any rank's vocab columns
+                bad = tp.any(bad)
             fault = state["fault"] | (bad & active)
             if sampling is None:
-                nxt = torch.argmax(logits, dim=-1)
+                nxt = (torch.argmax(logits, dim=-1) if tp is None
+                       else tp.argmax(logits))
             else:
+                if tp is not None:
+                    logits = tp.full_logits(logits)
                 lg = logits / sampling.temperature
                 if sampling.top_k:
                     kth = torch.topk(lg, sampling.top_k, dim=-1)[0][:, -1:]
@@ -326,7 +387,11 @@ class ServingEngine:
     def _admit(self, slot: int, ptoks: np.ndarray, vision, bank_slot: int,
                plen: int, tlen: int, rng: int) -> None:
         """Stage one admitted request into ``slot`` and zero its cache rows
-        (in place; every slot buffer is rewritten)."""
+        (in place; every slot buffer is rewritten) — on the rank that holds
+        the slot's row."""
+        if slot not in self._rows:
+            return
+        slot -= self._rows.start
         st, dev = self._state, self.device
         st["ptoks"][slot] = torch.from_numpy(ptoks).to(dev)
         if self._n_prefix:
@@ -475,10 +540,12 @@ class ServingEngine:
         self.dispatch_count["fetch"] += 1
         with self.telemetry.span("fetch", cat="dispatch", rows=len(done)):
             # fault flags ride the SAME transfer as the tokens
-            idx = torch.tensor(done, device=self.device)
             st = self._state
-            fetched = torch.cat([st["gen"][idx], st["fault"][idx, None].long()],
-                                dim=1).cpu().numpy()
+            rows = torch.cat([st["gen"], st["fault"][:, None].long()], dim=1)
+            if self.mesh is not None:           # every rank's slot rows
+                rows = self.mesh.all_gather(rows, "data")
+            idx = torch.tensor(done, device=self.device)
+            fetched = rows[idx].cpu().numpy()
         gen_rows, fault_rows = fetched[:, :-1], fetched[:, -1]
         out = []
         now = self.clock()

@@ -118,8 +118,10 @@ def test_evaluation_matches_reference():
 
 
 def test_unported_options_raise():
-    """Only the round mesh is still refused; the paged store and FLoRA's
-    round, which raised until they were ported, now run."""
+    """The options that raised until they were ported now run: the paged
+    store and FLoRA's round; a round mesh must be a
+    ``repro_torch.launch.mesh.Mesh`` (``tests/test_torch_mesh_round.py``
+    runs the meshed rounds), anything else raises."""
     clients, gtest = TD.make_federated_datasets(TD.SyntheticTaskConfig(), 3,
                                                 SIZES)
     args = (t_config("fedbench-tiny"),)
@@ -130,7 +132,7 @@ def test_unported_options_raise():
     rec = paged.run_round()
     assert rec["sampled"] == [0, 1, 2] and paged.store.peak_resident == 3
     assert paged.dispatch_count["round_step"] == 1
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(TypeError, match="Mesh"):
         TTrainer(*args, TFed(**fed), *rest, device="cpu", mesh=object())
     flora = TTrainer(*args, TFed(aggregator="flora", **fed), *rest,
                      device="cpu")

@@ -246,8 +246,10 @@ def test_no_cuda_no_mesh():
     params = params_from_numpy(cfg, tree, device="cpu")
     with pytest.raises(RuntimeError, match="CUDA"):
         ServingEngine(cfg, params, store, lora_scale=1.0)
-    with pytest.raises(NotImplementedError):
+    # a serving mesh is a repro_torch.launch.mesh.Mesh
+    # (tests/test_torch_mesh_serving.py serves on one)
+    with pytest.raises(TypeError, match="Mesh"):
         ServingEngine(cfg, params, store, lora_scale=1.0, device="cpu",
                       mesh=object())
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(TypeError, match="Mesh"):
         AdapterStore(slots=2, rank=4, device="cpu", mesh=object())
