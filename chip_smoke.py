@@ -22,7 +22,9 @@ Phases (each raises on failure; the script then exits non-zero):
    bound for the same work: the BGMV kernels at the serving shapes, at
    the families phase's LoRA sites (``FAMILY_BGMV``: Mamba's ``in_proj``
    / ``out_proj``, Jamba's ``wq`` / ``wv``, DeepSeek-V2's ``wuq`` at
-   decode and at a prefill chunk, held to ``_hold``'s limits), and every
+   decode and at a prefill chunk, and a rank's shards of ``in_proj``,
+   ``out_proj`` and ``wuq`` at tensor-parallel degree 4, held to
+   ``_hold``'s limits), and every
    compiled BGMV instance at small ragged shapes, the
    ``dim_agg`` kernels at the round's leaves on fedbench-100m and at the
    JAX package's benchmark shape ``K10_L64_r32_n4096`` in both layouts
@@ -194,11 +196,26 @@ Phases (each raises on failure; the script then exits non-zero):
     each against the unmeshed run: cohorts, edits and ranks exact, losses
     within 1e-4, adapters as ``tests/test_torch_mesh_round.py`` holds
     them, tokens equal.  A line says whether that part ran.
+20. mesh_families — the same meshes on the Mamba-2, hybrid Jamba, MLA +
+    MoE and cross VLM stacks at published widths (``MESH_FAMILIES``),
+    tensor-parallel by ``repro_torch.models.tensor_parallel``'s plan for
+    each family, every BGMV / ``dim_agg`` / ``dim_agg_trimmed`` launch
+    held as it runs.  On one card, bf16: 2 ``fedilora_kernel`` and 1
+    ``fedilora_trimmed_kernel`` rounds (2 of 10 clients a round, 3 local
+    steps) of mamba2-130m, Jamba cut to 8 layers, DeepSeek-V2 cut to 2
+    and llama-3.2-vision cut to 10 (gates opened) on a ``(1, 1)`` (client,
+    model) mesh, and ``(1, 1)`` ``("data", "model")`` engines on the first
+    three, each bit for bit the unmeshed run from the same weights.  With
+    4 cards or more, also a 2x2 round and a 1x4 engine in f32 against the
+    unmeshed f32 run on each rank, and jamba-v0.1-52b uncut (32 layers,
+    49.37 B parameters) in bf16 on a (1, 4) engine, each rank drawing only
+    its pieces: peak memory per rank, tokens/s, and f32 decode against
+    the same mesh's forward.  A line says which parts ran.
 
 Each path that runs a kernel (ops: ``lora_matmul`` and ``flash_attention``;
 serve, slo and families: BGMV; train, faults, timelines, population,
 checkpoint and vision: ``dim_agg``; the trimmed runs and vision:
-``dim_agg_trimmed``; mesh: all three) is driven
+``dim_agg_trimmed``; mesh and mesh_families: all three) is driven
 with the launch counts set to 0 just before it and read just after; a
 kernel that its path never launched fails the run.  It prints a JSON
 line describing every kernel, the ``nvidia-smi`` line, and last
@@ -253,7 +270,15 @@ FAMILY_BGMV = [("mamba2-130m.in_proj", 16, 768, 3352),
                ("jamba-v0.1-52b.wq", 16, 4096, 4096),
                ("jamba-v0.1-52b.wv", 16, 4096, 1024),
                ("deepseek-v2-236b.wuq", 16, 1536, 24576),
-               ("deepseek-v2-236b.wuq.prefill", 512, 1536, 24576)]
+               ("deepseek-v2-236b.wuq.prefill", 512, 1536, 24576),
+               # a rank's shard at tensor-parallel degree 4 (the
+               # mesh_families phase's (1, 4) engines): in_proj cut
+               # segment by segment (z, xs and dt by heads beside the
+               # whole B / C), out_proj's rows (K cut), wuq by heads
+               ("mamba2-130m.in_proj.tp4", 16, 768, 1030),
+               ("jamba-v0.1-52b.in_proj.tp4", 16, 4096, 4384),
+               ("jamba-v0.1-52b.out_proj.tp4", 16, 2048, 4096),
+               ("deepseek-v2-236b.wuq.tp4", 16, 1536, 6144)]
 
 # the round's stacked leaves on fedbench-100m (K = 4 sampled clients,
 # 12 layers, r_g = 32): (name, [K, L, P, Q], rank axis), then the JAX
@@ -1902,7 +1927,8 @@ _FED_DATA: dict = {}
 
 
 def fed_setup(aggregator: str, *, base=None, model: str = "fedbench-100m",
-              task: dict | None = None, mesh=None, **fed_kw):
+              task: dict | None = None, mesh=None, cfg=None,
+              split: bool = False, **fed_kw):
     """fedbench-100m as ``examples/federated_finetune.py`` sets it up: the
     synthetic task with seed 1, 10 clients of heterogeneous sizes, 80/20
     train/eval shards, 60% missing modalities, ranks 4..32, 4 clients a
@@ -1910,7 +1936,10 @@ def fed_setup(aggregator: str, *, base=None, model: str = "fedbench-100m",
     (``SyntheticTaskConfig`` fields, e.g. the image width) put another
     model under the same protocol.  Each corpus is made once and shared by
     every trainer (none writes to it).  ``fed_kw`` override
-    ``FederatedConfig`` fields; ``mesh`` is the trainer's round mesh."""
+    ``FederatedConfig`` fields; ``mesh`` is the trainer's round mesh.
+    ``cfg`` replaces ``model``'s published config (a cut depth, another
+    dtype); ``split``: ``base`` holds this rank's tensor-parallel pieces
+    for ``mesh`` (``init_params(..., tp=)``)."""
     from repro_torch.configs import get_config
     from repro_torch.core.editing import EditConfig
     from repro_torch.data import (SyntheticTaskConfig, apply_missing_modality,
@@ -1938,11 +1967,14 @@ def fed_setup(aggregator: str, *, base=None, model: str = "fedbench-100m",
         num_clients=10, sample_rate=0.4, ranks=TRAIN_RANKS, local_steps=10,
         batch_size=8, aggregator=aggregator, edit=EditConfig()), **fed_kw})
     opt = OptimizerConfig(peak_lr=1e-3, total_steps=TRAIN_ROUNDS * 10)
-    cfg = get_config(model)
+    cfg = cfg or get_config(model)
     if base is None:
         base = init_params(cfg, seed=42)
-    return FederatedTrainer(cfg, fed, opt, data["tr"], data["ev"],
-                            data["gtest"], base_params=base, mesh=mesh)
+    tr = FederatedTrainer(cfg, fed, opt, data["tr"], data["ev"],
+                          data["gtest"], base_params=base, mesh=mesh)
+    if split:
+        tr.set_base_params(base, split=True)
+    return tr
 
 
 def phase_train() -> dict:
@@ -2999,14 +3031,16 @@ def family_requests(cfg, rng, n: int, *, gen=(8, 25)):
                     gen_len=int(rng.integers(*gen))) for _ in range(n)]
 
 
-def family_engine(cfg, params, adapters, *, backend: str, prefill_chunk):
+def family_engine(cfg, params, adapters, *, backend: str, prefill_chunk,
+                  mesh=None, split: bool = False):
     from repro_torch.serving import AdapterStore, ServingEngine
-    store = AdapterStore(slots=FAMILY_BANK, rank=max(RANKS))
+    store = AdapterStore(slots=FAMILY_BANK, rank=max(RANKS), mesh=mesh)
     for tid, (lora, rank) in adapters.items():
         store.register(tid, lora, rank)
     return ServingEngine(cfg, params, store, lora_scale=FAMILY_LORA_SCALE,
                          max_slots=16, max_prompt=48, max_gen=24,
-                         prefill_chunk=prefill_chunk, lora_backend=backend)
+                         prefill_chunk=prefill_chunk, lora_backend=backend,
+                         mesh=mesh, split=split)
 
 
 def _family_tokens(cfg, params, adapters, reqs, backend: str, chunk) -> dict:
@@ -3818,9 +3852,11 @@ def _mesh_rank(rank: int, world: int, rdv: str, out_path: str,
         dist.destroy_process_group()
 
 
-def _spawn_mesh(world: int, parts: tuple) -> dict:
-    """Run ``_mesh_rank`` on ``world`` cards (spawned processes, a
-    rendezvous file under ``build/``); a failing rank fails the phase."""
+def _spawn_mesh(world: int, parts: tuple, target=None,
+                timeout: float = MESH_TIMEOUT_S) -> dict:
+    """Run ``target`` (default ``_mesh_rank``) on ``world`` cards (spawned
+    processes, a rendezvous file under ``build/``) for at most
+    ``timeout`` seconds; a failing rank fails the phase."""
     import torch.multiprocessing as mp
 
     out_dir = os.path.join(ROOT, "build")
@@ -3831,15 +3867,16 @@ def _spawn_mesh(world: int, parts: tuple) -> dict:
     for p in (rdv, out_path):
         if os.path.exists(p):
             os.unlink(p)
-    ctx = mp.start_processes(_mesh_rank, args=(world, rdv, out_path, parts),
+    ctx = mp.start_processes(target or _mesh_rank,
+                             args=(world, rdv, out_path, parts),
                              nprocs=world, join=False, start_method="spawn")
-    end = time.monotonic() + MESH_TIMEOUT_S
+    end = time.monotonic() + timeout
     while not ctx.join(timeout=max(end - time.monotonic(), 1.0)):
         if time.monotonic() > end:
             for p in ctx.processes:
                 p.kill()
             raise TimeoutError(f"mesh ranks ({world}) still running after "
-                               f"{MESH_TIMEOUT_S} s")
+                               f"{timeout} s")
     with open(out_path) as f:
         res = json.load(f)
     for p in (rdv, out_path):
@@ -3896,6 +3933,557 @@ def phase_mesh(dev_name: str) -> dict:
         _print_mesh(2, out["two"])
     print(f"mesh: the multi-rank part {'ran' if n_dev >= 4 else 'did not run'}"
           f" ({n_dev} device{'s' if n_dev != 1 else ''}; it needs 4)",
+          flush=True)
+    return out
+
+
+# the mesh_families phase: round and serving meshes on the Mamba-2,
+# hybrid Jamba, MLA + MoE and cross-attention VLM families at published
+# widths, over NCCL.  (config, layers kept on one card in bf16, layers in
+# f32 on four — the depth at which the unmeshed f32 run fits one card:
+# Jamba's 8 layers are one pattern period, 48 GB of f32 weights).  The
+# rounds follow fed_setup's protocol with 2 of the 10 clients a round and
+# 3 local steps (``MESH_FAMILY_FED``; the first moves no A, its B
+# starting at 0, so with 2 the edited module can hang on near-equal
+# similarities), the VLM's images 64 patches of its
+# vision width with every gate opened to 1.0; the engines serve
+# ``MESH_FAMILY_REQUESTS`` requests of the families phase's kind
+MESH_FAMILIES = [("mamba2-130m", None, None), ("jamba-v0.1-52b", 8, 8),
+                 ("deepseek-v2-236b", 2, 2),
+                 ("llama-3.2-vision-11b", 10, 10)]
+MESH_SERVED = ("mamba2-130m", "jamba-v0.1-52b", "deepseek-v2-236b")
+MESH_FAMILY_FED = dict(sample_rate=0.2, local_steps=3)
+MESH_FAMILY_REQUESTS = 8
+# jamba-v0.1-52b (arXiv:2403.19887) uncut, 32 layers, 49.37 B parameters,
+# bf16 on a (1, 4) ("data", "model") engine: JAMBA_REQUESTS requests of
+# the families phase's FAMILY_TENANTS tenants; then its decode logits
+# against the same mesh's forward over JAMBA_DVF (batch, positions) with
+# one adapter, in f32 over the same (bf16-valued) weights at a capacity
+# that drops nothing: in
+# bf16 the decode and the forward round the residual stream in another
+# order, and over 16 MoE layers a near tie between two experts flips a
+# pick, so bf16 logits part by whole expert outputs.  The limit is the
+# families phase's f32 limit
+JAMBA = "jamba-v0.1-52b"
+JAMBA_REQUESTS, JAMBA_DVF = 8, (2, 40)
+# A tensor-parallel run sums in another order than the unmeshed one, so a
+# router pick whose probabilities nearly tie can part between the two:
+# the runs then differ by whole expert outputs (a Jamba-8 round's loss by
+# 1.1e-3 in my four-card chip call 2).  The four-card comparisons of MoE
+# stacks record every routing decision of both runs; where they part, the
+# first parted call must part only at picks whose probabilities lie
+# within ROUTE_TIE of the next in the unmeshed run (f32 sums that differ
+# in the sixth digit move a probability by ~1e-5), and the runs are then
+# held to be finite and the same on every rank, not to each other
+ROUTE_TIE = 1e-4
+
+
+def _route_recorder() -> list:
+    """Record every ``moe_route`` call of this process: the picks
+    ``ids`` [T, K] and each token's smallest gap between adjacent ones of
+    its K + 1 largest probabilities.  One record a process: a second
+    call returns the first's list."""
+    from repro_torch.models import layers as L
+    if hasattr(L.moe_route, "seen"):
+        return L.moe_route.seen
+    seen, route = [], L.moe_route
+
+    def recorded(router, xf, cfg):
+        out = route(router, xf, cfg)
+        top = out[0].topk(out[2].shape[1] + 1, dim=-1).values
+        seen.append((out[2].clone(),
+                     (top[:, :-1] - top[:, 1:]).min(-1).values))
+        return out
+
+    recorded.seen = seen
+    L.moe_route = recorded
+    return seen
+
+
+def _first_parting(plain: list, mine: list):
+    """Where two runs' routing decisions first part: ``None``, or the
+    call, the picks parted there and the largest of their gaps in
+    ``plain``."""
+    import torch
+    if len(plain) != len(mine):
+        raise AssertionError(f"{len(mine)} routing calls against "
+                             f"{len(plain)} unmeshed")
+    for i, ((ia, ga), (ib, _)) in enumerate(zip(plain, mine)):
+        if not torch.equal(ia, ib):
+            parted = (ia != ib).any(-1)
+            return {"call": i, "of": len(plain),
+                    "picks": int(parted.sum().item()),
+                    "gap": ga[parted].max().item()}
+    return None
+
+
+def _family_round_runs(name: str, layers, dtype: str, meshes: dict, *,
+                       exact: bool) -> dict:
+    """``MESH_ROUNDS`` on ``name`` (cut to ``layers``, ``dtype``) unmeshed
+    and on every mesh of ``meshes``, each trainer from the same seeded
+    weights (a meshed one draws only its pieces: ``init_params(tp=)``) and
+    freed before the next.  ``exact``: every mesh gives the unmeshed
+    records, global and stacked adapters bit for bit; otherwise the
+    cohorts, edits and ranks exactly, the losses within 1e-4 and the
+    global by ``_adapters_close``.  Every rank's global is the same bit for
+    bit; ``dim_agg`` / ``dim_agg_trimmed`` launch once a round."""
+    import dataclasses
+    import gc
+
+    import torch
+
+    from repro_torch.kernels import dim_agg as DK
+    from repro_torch.models.tensor_parallel import TensorParallel
+    from repro_torch.models.transformer import init_params
+
+    cfg = dataclasses.replace(_family_cfg(name, layers), dtype=dtype)
+    task = (dict(image_dim=cfg.vision_dim, num_patches=VISION_PATCHES)
+            if cfg.family == "vlm" else None)
+    out = {"layers": cfg.num_layers, "dtype": dtype}
+    routes = _route_recorder() if not exact and cfg.moe is not None else []
+    for agg, rounds, kw in MESH_ROUNDS:
+        runs = {}
+        for mname, mesh in [("unmeshed", None)] + list(meshes.items()):
+            gc.collect()
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+            tp = None if mesh is None else TensorParallel(cfg, mesh)
+            base = init_params(cfg, seed=0, tp=tp)
+            _open_gates(base, VISION_GATE)
+            tr = fed_setup(agg, base=base, cfg=cfg, task=task, mesh=mesh,
+                           split=tp is not None, **MESH_FAMILY_FED, **kw)
+            del base
+            DK.reset_launches()
+            if mesh is not None:
+                mesh.reset_collectives()
+            routes.clear()
+            recs, walls = [], []
+            for _ in range(rounds):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                recs.append(tr.run_round())
+                torch.cuda.synchronize()
+                walls.append(time.perf_counter() - t0)
+            key = "dim_agg_trimmed" if "trimmed" in agg else "dim_agg"
+            if DK.launches[key] != rounds:
+                raise AssertionError(f"mesh_families {name} {mname} {agg}: "
+                                     f"launches {dict(DK.launches)}, "
+                                     f"expected {rounds} {key}")
+            if not all(math.isfinite(r["train_loss"]) for r in recs):
+                raise AssertionError(f"mesh_families {name} {mname} {agg}: "
+                                     f"losses {recs}")
+            runs[mname] = {
+                "recs": recs, "walls": walls, "launches": dict(DK.launches),
+                "ranks": tr.client_ranks.copy(),
+                "global": _clone_tree(tr.server.global_lora),
+                "stacked": _clone_tree(tr.stacked_lora),
+                "steps": tr.fcfg.local_steps, "lr": tr.ocfg.peak_lr,
+                "routes": list(routes),
+                "peak_gb": torch.cuda.max_memory_allocated() / 1e9,
+                "collectives": ({} if mesh is None else {
+                    f"{op}.{ax}": n for (op, ax), n in
+                    mesh.collectives.items()})}
+            del tr
+        plain = runs.pop("unmeshed")
+        res = {"unmeshed": {k: plain[k] for k in ("walls", "peak_gb")}}
+        for mname, r in runs.items():
+            flat = torch.cat([e[m].reshape(-1) for e in r["global"].values()
+                              for m in "AB"])
+            every = [torch.empty_like(flat) for _ in
+                     range(torch.distributed.get_world_size())]
+            torch.distributed.all_gather(every, flat)
+            if not all(torch.equal(f, flat) for f in every):
+                raise AssertionError(f"mesh_families {name} {mname} {agg}: "
+                                     "the ranks' globals differ")
+            if exact:
+                same = r["recs"] == plain["recs"] and all(
+                    torch.equal(r[t][n][m], plain[t][n][m])
+                    for t in ("global", "stacked") for n in plain[t]
+                    for m in "AB")
+                if not same:
+                    raise AssertionError(f"mesh_families {name} {mname} "
+                                         f"{agg}: not bit for bit the "
+                                         "unmeshed rounds")
+                err = {"max_abs_err": 0.0, "bit_equal": True}
+            elif (parting := _round_parting(plain, r, mesh)) is not None:
+                err = {"routes_parted": parting, **_adapters_close(
+                    r["global"], plain["global"], rounds, r["steps"],
+                    r["lr"])}
+            else:
+                for a, b in zip(r["recs"], plain["recs"]):
+                    if (a["sampled"], a["edited_layers"]) != (
+                            b["sampled"], b["edited_layers"]) or abs(
+                            a["train_loss"] - b["train_loss"]) > 1e-4:
+                        raise AssertionError(f"mesh_families {name} {mname}"
+                                             f" {agg}: {a} vs {b}")
+                if not (r["ranks"] == plain["ranks"]).all():
+                    raise AssertionError(f"mesh_families {name} {mname} "
+                                         f"{agg}: ranks differ")
+                err = _adapters_close(r["global"], plain["global"], rounds,
+                                      r["steps"], r["lr"])
+                if not err["within_tol"]:
+                    raise AssertionError(f"mesh_families {name} {mname} "
+                                         f"{agg}: global adapters {err}")
+            res[mname] = {"walls": r["walls"], "launches": r["launches"],
+                          "collectives": r["collectives"],
+                          "peak_gb": r["peak_gb"],
+                          "losses": [x["train_loss"] for x in r["recs"]],
+                          **err}
+        out[agg] = res
+    return out
+
+
+def _round_parting(plain: dict, run: dict, mesh):
+    """The first parting of a meshed round's routing from the unmeshed
+    round's (``_first_parting``), ``None`` where they agree; raises where
+    the first parted picks were no near ties.  A rank of the client axis
+    trains its block of each round's cohort, so its calls are that
+    block's share of the unmeshed run's, round by round."""
+    if not plain["routes"]:
+        return None
+    n_rounds, n_s = len(plain["recs"]), len(plain["recs"][0]["sampled"])
+    groups = mesh.shape["client"]
+    per = len(plain["routes"]) // (n_rounds * n_s)     # one client's calls
+    c, m = mesh.coord("client"), n_s // groups
+    mine = [x for r in range(n_rounds) for x in plain["routes"][
+        (r * n_s + c * m) * per:(r * n_s + (c + 1) * m) * per]]
+    parting = _first_parting(mine, run["routes"])
+    if parting is not None and not parting["gap"] <= ROUTE_TIE:
+        raise AssertionError(f"routing parted from the unmeshed run at "
+                             f"picks that were no near tie: {parting}")
+    return parting
+
+
+def _family_serve_runs(name: str, layers, dtype: str, meshes: dict) -> dict:
+    """``name`` (cut to ``layers``, ``dtype``) serving
+    ``MESH_FAMILY_REQUESTS`` requests through ``lora_backend="grouped"``
+    unmeshed and on every mesh of ``meshes`` (the engine cuts the whole
+    weights): the same tokens, request for request, and one BGMV call a
+    banked site a block for every serve/prefill call."""
+    import dataclasses
+    import gc
+
+    import numpy as np
+    import torch
+
+    from repro_torch.kernels import grouped_lora_matmul as glm
+    from repro_torch.models.transformer import init_params
+
+    cfg = dataclasses.replace(_family_cfg(name, layers), dtype=dtype)
+    chunk = next(c for n, _, c, *_ in FAMILIES if n == name)
+    rng = np.random.default_rng(11)
+    adapters = make_adapters(cfg, rng, FAMILY_TENANTS)
+    reqs = family_requests(cfg, rng, MESH_FAMILY_REQUESTS)
+    params = init_params(cfg, seed=0)
+    toks, out = {}, {"layers": cfg.num_layers, "dtype": dtype}
+    meshed_tp = any(m.shape.get("model", 1) > 1 for m in meshes.values())
+    routes = _route_recorder() if meshed_tp and cfg.moe is not None else []
+    seen = {}
+    for mname, mesh in [("unmeshed", None)] + list(meshes.items()):
+        gc.collect()
+        torch.cuda.empty_cache()
+        routes.clear()
+        eng = family_engine(cfg, params, adapters, backend="grouped",
+                            prefill_chunk=chunk, mesh=mesh)
+        if mesh is not None:
+            mesh.reset_collectives()
+        glm.reset_launches()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        done = eng.run([dataclasses.replace(q) for q in reqs])
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        dc = eng.dispatch_count
+        calls = dc["serve_step"] + dc["serve_prefill"]
+        want = _bgmv_sites(cfg) * cfg.num_blocks * calls
+        if glm.launches != want or not want:
+            raise AssertionError(f"mesh_families serve {name} {mname}: "
+                                 f"BGMV launched {glm.launches} times, "
+                                 f"expected {want}")
+        toks[mname] = [d["tokens"].tolist() for d in
+                       sorted(done, key=lambda d: d["uid"])]
+        seen[mname] = list(routes)
+        out[mname] = {"wall_s": wall, "launches": glm.launches,
+                      "steps": eng.steps,
+                      "collectives": ({} if mesh is None else {
+                          f"{op}.{ax}": n for (op, ax), n in
+                          mesh.collectives.items()})}
+        del eng
+    for mname in meshes:
+        if toks[mname] == toks["unmeshed"]:
+            continue
+        bad = sum(a != b for a, b in zip(toks[mname], toks["unmeshed"]))
+        parting = (_first_parting(seen["unmeshed"], seen[mname])
+                   if seen["unmeshed"] else None)
+        if parting is None or not parting["gap"] <= ROUTE_TIE:
+            raise AssertionError(f"mesh_families serve {name} {mname} "
+                                 f"({dtype}): tokens of {bad} requests "
+                                 f"differ from unmeshed (routing parting "
+                                 f"{parting})")
+        out[mname].update(routes_parted=parting, requests_parted=bad)
+    return out
+
+
+def _jamba_uncut(mesh) -> dict:
+    """jamba-v0.1-52b at its published depth, bf16, each rank drawing only
+    its pieces (``init_params(tp=)``): a (1, 4) ``("data", "model")``
+    engine serves ``JAMBA_REQUESTS`` requests of ``FAMILY_TENANTS``
+    tenants (peak memory per rank, generated tokens/s); then the weights
+    are cast to f32 leaf by leaf and the same mesh's ``decode_step``
+    streams ``JAMBA_DVF`` positions against one ``forward`` with an
+    adapter, at a capacity that drops nothing, within
+    ``FAMILY_DECODE_ATOL`` on every rank's vocabulary columns."""
+    import dataclasses
+    import gc
+
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import grouped_lora_matmul as glm
+    from repro_torch.models.tensor_parallel import TensorParallel
+    from repro_torch.models.transformer import (decode_step, forward,
+                                                init_cache, init_params)
+
+    cfg = get_config(JAMBA)
+    tp = TensorParallel(cfg, mesh)
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = init_params(cfg, seed=0, tp=tp)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    # the draw holds one whole sublayer beside the pieces: its peak apart
+    init_peak = torch.cuda.max_memory_allocated() / 1e9
+    torch.cuda.reset_peak_memory_stats()
+    local = sum(v.numel() for v in _leaves(params))
+    rng = np.random.default_rng(12)
+    adapters = make_adapters(cfg, rng, FAMILY_TENANTS)
+    reqs = family_requests(cfg, rng, JAMBA_REQUESTS)
+    eng = family_engine(cfg, params, adapters, backend="grouped",
+                        prefill_chunk=None, mesh=mesh, split=True)
+    mesh.reset_collectives()
+    glm.reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    done = eng.run(reqs)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    dc = eng.dispatch_count
+    calls = dc["serve_step"] + dc["serve_prefill"]
+    want = _bgmv_sites(cfg) * cfg.num_blocks * calls
+    if glm.launches != want or not want:
+        raise AssertionError(f"jamba uncut: BGMV launched {glm.launches} "
+                             f"times, expected {want}")
+    for d in done:
+        if d["status"] != "ok" or not (
+                (d["tokens"] >= 0) & (d["tokens"] < cfg.vocab_size)).all():
+            raise AssertionError(f"jamba uncut request {d['uid']}: {d}")
+    tokens = sum(q.gen_len for q in reqs)
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    rec = {"layers": cfg.num_layers, "params_local": local,
+           "init_s": init_s, "requests": len(reqs), "steps": eng.steps,
+           "wall_s": wall, "generated_tokens": tokens,
+           "tokens_per_s": tokens / wall, "launches": glm.launches,
+           "collectives": {f"{op}.{ax}": n for (op, ax), n in
+                           mesh.collectives.items()}}
+    del eng, done
+    gc.collect()                      # the engine's closures hold params
+    # f32 decode vs forward over the same weights, cast leaf by leaf
+    torch.cuda.reset_peak_memory_stats()
+    _to_f32_in_place(params)
+    torch.cuda.empty_cache()
+    cfg32 = dataclasses.replace(_family_cfg(JAMBA, None, no_drop=True),
+                                dtype="float32")
+    lora = tp.local_lora(_cuda_adapter(cfg32, 13))
+    B, S = JAMBA_DVF
+    toks = torch.from_numpy(np.random.default_rng(14).integers(
+        0, cfg.vocab_size, (B, S))).cuda()
+    t0 = time.perf_counter()
+    full, _ = forward(cfg32, params, toks, lora=lora,
+                      lora_scale=FAMILY_LORA_SCALE, tp=tp)
+    cache = init_cache(cfg32, params, B, S, lora=lora,
+                       lora_scale=FAMILY_LORA_SCALE, tp=tp)
+    errs = []
+    for t in range(S):
+        lg, cache = decode_step(cfg32, params, cache, toks[:, t], t,
+                                lora=lora, lora_scale=FAMILY_LORA_SCALE,
+                                tp=tp)
+        errs.append((lg - full[:, t].float()).abs().max())
+    err = tp.mesh.all_reduce(torch.stack(errs).max().reshape(1), "model",
+                             op="max").item()
+    scale = tp.mesh.all_reduce(full.abs().max().float().reshape(1), "model",
+                               op="max").item()
+    peaks = tp.mesh.all_gather(torch.tensor(
+        [init_peak, peak, torch.cuda.max_memory_allocated() / 1e9],
+        device="cuda"), "model").reshape(-1, 3)
+    rec.update({"decode_vs_forward_err": err, "forward_max_abs": scale,
+                "decode_vs_forward_s": time.perf_counter() - t0,
+                "decode_batch": B, "decode_positions": S,
+                "capacity_factor": cfg32.moe.capacity_factor,
+                "peak_init_gb_per_rank": peaks[:, 0].tolist(),
+                "peak_serve_gb_per_rank": peaks[:, 1].tolist(),
+                "peak_f32_check_gb_per_rank": peaks[:, 2].tolist()})
+    if not err <= FAMILY_DECODE_ATOL:
+        raise AssertionError(f"jamba uncut f32: decode vs forward max err "
+                             f"{err:.3e} beyond {FAMILY_DECODE_ATOL}")
+    del params, cache, full
+    return rec
+
+
+def _to_f32_in_place(tree: dict) -> None:
+    """Replace every floating leaf of ``tree`` by its f32 copy, one at a
+    time, so the memory of both copies is never held at once."""
+    for k, v in tree.items():
+        if isinstance(v, dict):
+            _to_f32_in_place(v)
+        elif v.is_floating_point():
+            tree[k] = v.float()
+
+
+def _mesh_families_rank(rank: int, world: int, rdv: str, out_path: str,
+                        parts: tuple) -> None:
+    """One rank of the mesh_families phase (spawned): NCCL over ``world``
+    cards, the kernel entry points held (``_held_kernels``), then
+    ``parts``; rank 0 writes the record to ``out_path``."""
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.launch.mesh import Mesh, init_distributed
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    init_distributed(init_method=f"file://{rdv}", world_size=world,
+                     rank=rank)
+    held = _held_kernels()
+    one = world == 1
+    res = {"ran": []}
+    try:
+        for part in parts:
+            t0 = time.perf_counter()
+            if part == "rounds":
+                meshes = ({"client x model(1x1)": Mesh(
+                    (1, 1), ("client", "model"))} if one else
+                    {"client x model(2x2)": Mesh((2, 2), ("client",
+                                                          "model"))})
+                res[part] = {name: _family_round_runs(
+                    name, layers if one else f32, "bfloat16" if one
+                    else "float32", meshes, exact=one)
+                    for name, layers, f32 in MESH_FAMILIES}
+            elif part == "serve":
+                meshes = {f"data x model(1x{world})": Mesh(
+                    (1, world), ("data", "model"))}
+                res[part] = {name: _family_serve_runs(
+                    name, layers if one else f32, "bfloat16" if one
+                    else "float32", meshes)
+                    for name, layers, f32 in MESH_FAMILIES
+                    if name in MESH_SERVED}
+            elif part == "jamba":
+                res[part] = _jamba_uncut(Mesh((1, world), ("data", "model")))
+            res["ran"].append(part)
+            res.setdefault("wall_s", {})[part] = time.perf_counter() - t0
+        res["held"] = {k: dict(v, shapes=sorted(v["shapes"]))
+                       for k, v in held.items()}
+        if rank == 0:
+            with open(out_path, "w") as f:
+                json.dump(res, f, default=float)
+    finally:
+        dist.destroy_process_group()
+
+
+def _print_mesh_families(world: int, res: dict) -> None:
+    for name, r in res.get("rounds", {}).items():
+        for agg in (a for a, *_ in MESH_ROUNDS):
+            for mname, v in r[agg].items():
+                if mname == "unmeshed":
+                    continue
+                print(f"mesh_families ({world} ranks): {name} "
+                      f"{r['dtype']} {r['layers']} layers, {agg} on {mname}:"
+                      f" losses {[round(x, 6) for x in v['losses']]}, walls "
+                      f"{[round(w, 3) for w in v['walls']]} s (unmeshed "
+                      f"{[round(w, 3) for w in r[agg]['unmeshed']['walls']]}"
+                      f" s), peak {v['peak_gb']:.1f} GB, global max err "
+                      f"{v['max_abs_err']:.3e}"
+                      f"{' (bit for bit)' if v.get('bit_equal') else ''}"
+                      f"{_parting_note(v)}, "
+                      f"launches {v['launches']}, collectives "
+                      f"{v['collectives']}", flush=True)
+    for name, r in res.get("serve", {}).items():
+        for mname, v in r.items():
+            if not isinstance(v, dict):
+                continue
+            same = ("tokens equal to unmeshed" if "routes_parted" not in v
+                      else f"tokens of {v['requests_parted']} requests "
+                      f"parted{_parting_note(v)}")
+            print(f"mesh_families ({world} ranks): serve {name} "
+                  f"{r['dtype']} {r['layers']} layers on {mname}: {same}, "
+                  f"{v['steps']} steps, "
+                  f"{v['wall_s']:.2f} s, BGMV launches {v['launches']}, "
+                  f"collectives {v['collectives']}", flush=True)
+    if "jamba" in res:
+        j = res["jamba"]
+        print(f"mesh_families ({world} ranks): {JAMBA} uncut "
+              f"({j['layers']} layers, {j['params_local'] / 1e9:.2f} B "
+              f"parameters a rank) bf16 on data x model(1x{world}): "
+              f"{j['requests']} requests, {j['steps']} steps, "
+              f"{j['wall_s']:.2f} s, {j['tokens_per_s']:.1f} generated "
+              f"tokens/s, peak GB per rank serving "
+              f"{[round(x, 1) for x in j['peak_serve_gb_per_rank']]}, "
+              f"drawing the weights "
+              f"{[round(x, 1) for x in j['peak_init_gb_per_rank']]}, in the "
+              f"f32 check "
+              f"{[round(x, 1) for x in j['peak_f32_check_gb_per_rank']]}; f32 "
+              f"decode vs forward over {j['decode_batch']} x "
+              f"{j['decode_positions']} positions max err "
+              f"{j['decode_vs_forward_err']:.3e} (limit "
+              f"{FAMILY_DECODE_ATOL}, logits up to "
+              f"{j['forward_max_abs']:.2f})", flush=True)
+    for k, v in res["held"].items():
+        print(f"mesh_families ({world} ranks): {k} held against its plain "
+              f"version at {v['held']} launches, max err "
+              f"{v['max_abs_err']:.3e}, shapes {v['shapes']}", flush=True)
+
+
+def _parting_note(v: dict) -> str:
+    p = v.get("routes_parted")
+    if p is None:
+        return ""
+    return (f" (MoE routing parted from the unmeshed run at call "
+            f"{p['call']} of {p['of']}, {p['picks']} picks, probability gaps"
+            f" up to {p['gap']:.2e}: near ties; the runs not held to each "
+            "other)")
+
+
+def phase_mesh_families(dev_name: str) -> dict:
+    """The round and serving meshes on the Mamba-2, hybrid Jamba, MLA +
+    MoE and cross VLM stacks at published widths (``MESH_FAMILIES``):
+    world size 1 on one card in bf16 — (1, 1) round meshes and (1, 1)
+    engines, each bit for bit the unmeshed run from the same weights —
+    and with 4 cards or more also a 2x2 round and a 1x4 tensor-parallel
+    engine in f32 against the unmeshed f32 run on each rank, then
+    jamba-v0.1-52b uncut on a (1, 4) engine (``_jamba_uncut``).  Every
+    launch of BGMV, ``dim_agg`` and ``dim_agg_trimmed`` in those runs is
+    held against its plain version."""
+    import gc
+
+    import torch
+
+    gc.collect()
+    torch.cuda.empty_cache()          # the ranks share the card's memory
+    n_dev = torch.cuda.device_count()
+    out = {"devices": n_dev,
+           "one": _spawn_mesh(1, ("rounds", "serve"),
+                              target=_mesh_families_rank)}
+    _print_mesh_families(1, out["one"])
+    if n_dev >= 4:
+        out["four"] = _spawn_mesh(4, ("rounds", "serve", "jamba"),
+                                  target=_mesh_families_rank, timeout=1500)
+        _print_mesh_families(4, out["four"])
+    ran = {k: out[k]["ran"] for k in ("one", "four") if k in out}
+    print(f"mesh_families: ran {ran} ({n_dev} device"
+          f"{'s' if n_dev != 1 else ''}; the four-card part "
+          f"{'ran' if n_dev >= 4 else 'did not run: it needs 4'})",
           flush=True)
     return out
 
@@ -3960,6 +4548,7 @@ def main() -> int:
     families = timed("families", phase_families)
     vision = timed("vision", phase_vision, dev_name)
     meshed = timed("mesh", phase_mesh, dev_name)
+    meshed_families = timed("mesh_families", phase_mesh_families, dev_name)
     print("phase wall s: " + ", ".join(f"{k} {v:.1f}"
                                        for k, v in phase_s.items()),
           flush=True)
@@ -3980,6 +4569,22 @@ def main() -> int:
         raise AssertionError(f"the mesh phase did not launch and hold every "
                              f"kernel of its path: {mesh_launches}, "
                              f"{one['held']}")
+    # the same for the mesh_families phase's meshed runs (one card)
+    fam = meshed_families["one"]
+    fam_launches = {
+        "grouped_lora_matmul": sum(
+            v["launches"] for r in fam["serve"].values()
+            for k, v in r.items() if isinstance(v, dict)
+            and k != "unmeshed"),
+        **{key: sum(v["launches"][key] for r in fam["rounds"].values()
+                    for k, v in r[agg].items() if k != "unmeshed")
+           for key, agg in (("dim_agg", "fedilora_kernel"),
+                            ("dim_agg_trimmed", "fedilora_trimmed_kernel"))}}
+    if not all(fam_launches.values()) or any(
+            fam["held"][k]["held"] < 1 for k in fam_launches):
+        raise AssertionError(f"the mesh_families phase did not launch and "
+                             f"hold every kernel of its path: "
+                             f"{fam_launches}, {fam['held']}")
     cases = kern["cases"]
     # headline: the decode step's shape and dtypes on the serve path
     head = next(c for c in cases if (c["M"], c["N"]) == (16, 896)
@@ -3993,8 +4598,11 @@ def main() -> int:
                           "slo": slo["launches"],
                           **{f"families.{k}": v["launches"]
                              for k, v in families.items()},
-                          "mesh": mesh_launches["grouped_lora_matmul"]},
+                          "mesh": mesh_launches["grouped_lora_matmul"],
+                          "mesh_families": fam_launches[
+                              "grouped_lora_matmul"]},
         "mesh": meshed["one"]["held"]["grouped_lora_matmul"],
+        "mesh_families": fam["held"]["grouped_lora_matmul"],
         "max_abs_err": max(c["max_abs_err"]
                            for c in cases + kern["family_cases"]),
         "max_err_f32": max(c["max_abs_err"] for c in cases
@@ -4022,14 +4630,16 @@ def main() -> int:
                     "population": population["launches"]["dim_agg"],
                     "checkpoint": ckpt["launches"]["dim_agg"],
                     "vision": vision["launches"]["dim_agg"],
-                    "mesh": mesh_launches["dim_agg"]},
+                    "mesh": mesh_launches["dim_agg"],
+                    "mesh_families": fam_launches["dim_agg"]},
         "dim_agg_trimmed": {
             "train_agreement": train_agree["fedilora_trimmed_kernel"][
                 "launches"]["dim_agg_trimmed"],
             "faults": faulted["launches"]["dim_agg_trimmed"],
             "population": population["launches"]["dim_agg_trimmed"],
             "vision": vision["launches"]["dim_agg_trimmed"],
-            "mesh": mesh_launches["dim_agg_trimmed"]}}
+            "mesh": mesh_launches["dim_agg_trimmed"],
+            "mesh_families": fam_launches["dim_agg_trimmed"]}}
     for kernel, paths in path_launches.items():
         if not all(paths.values()):
             raise AssertionError(f"{kernel} was not launched on every path "
@@ -4051,6 +4661,7 @@ def main() -> int:
             "replaces": f"src/repro/kernels/dim_agg.py:{line}",
             "launches": launches, "path_launches": path_launches[name],
             "mesh": one["held"][name],
+            "mesh_families": fam["held"][name],
             "max_abs_err": max(c["max_abs_err"] for c in mine),
             "ms": h["ms"], "plain_ms": h["plain_ms"],
             "library_ms": h["library_ms"],
@@ -4123,7 +4734,7 @@ def main() -> int:
                    "population": population, "flora": flora,
                    "checkpoint": ckpt, "eval_ref": eval_ref, "cli": cli,
                    "families": families, "vision": vision,
-                   "mesh": meshed},
+                   "mesh": meshed, "mesh_families": meshed_families},
                   f, indent=1, default=float)
     print(json.dumps({"kernels": records}))
     print(smi)

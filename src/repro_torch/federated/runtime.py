@@ -70,8 +70,8 @@ and the decode that re-runs the full forward for every token.
 ``mesh=`` (or its alias ``client_mesh=``) runs the trainer on every rank
 of a ``repro_torch.launch.mesh.Mesh``: a 1-D mesh splits the sampled
 clients over its axis, a 2-D ``(client, "model")`` mesh also runs each
-client group's local training tensor-parallel over ``"model"`` (the
-dense and prefix-VLM attention stacks; ``launch/fedround.py``).  Every
+client group's local training tensor-parallel over ``"model"`` (every
+family: ``models/tensor_parallel.py``; ``launch/fedround.py``).  Every
 rank draws the same cohorts and faults, keeps the same whole client state
 and global, and holds the base weights as its tensor-parallel pieces
 (whole on a 1-D mesh).  The population evaluation splits the clients

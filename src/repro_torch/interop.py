@@ -47,9 +47,10 @@ def params_from_numpy(cfg: ModelConfig, tree: dict[str, Any], *,
     gave it: under a bf16 config the MoE router and Mamba's ``A_log``,
     ``D`` and ``dt_bias`` stay f32.  ``mesh`` (with a ``"model"`` axis):
     this rank's tensor-parallel pieces
-    (``repro_torch.models.tensor_parallel.TensorParallel.shard_params``);
-    each piece is cut on the host, so no rank holds the whole tree on its
-    device."""
+    (``repro_torch.models.tensor_parallel.TensorParallel.shard_params``:
+    heads, ``d_ff`` and expert columns, Mamba's ``in_proj`` and conv
+    segment by segment); each piece is cut on the host, so no rank holds
+    the whole tree on its device."""
     device = resolve_device(device)
     if mesh is None or "model" not in mesh.axis_names:
         return _tree(tree, device=device)

@@ -84,6 +84,22 @@ class _ReduceFromAxis(torch.autograd.Function):
         return g, None, None
 
 
+class _SumOverAxis(torch.autograd.Function):
+    """All-reduce forward and backward: a sum of partial values that each
+    rank goes on to use in its own partial computation, so the sum's
+    gradient is itself a partial sum on each rank."""
+
+    @staticmethod
+    def forward(ctx, x, mesh, axis):
+        ctx.mesh, ctx.axis = mesh, axis
+        return mesh.all_reduce(x.contiguous().clone(), axis)
+
+    @staticmethod
+    def backward(ctx, g):
+        return ctx.mesh.all_reduce(g.contiguous().clone(), ctx.axis), \
+            None, None
+
+
 class Mesh:
     """A named device mesh over the process group.
 
@@ -167,6 +183,11 @@ class Mesh:
     def reduce_from(self, x: torch.Tensor, axis: str) -> torch.Tensor:
         """Autograd: all-reduce (sum) over ``axis``, gradient as it is."""
         return _ReduceFromAxis.apply(x, self, axis)
+
+    def sum_over(self, x: torch.Tensor, axis: str) -> torch.Tensor:
+        """Autograd: all-reduce (sum) over ``axis``, gradient all-reduced
+        too."""
+        return _SumOverAxis.apply(x, self, axis)
 
 
 def make_production_mesh(*, multi_pod: bool = False) -> Mesh:

@@ -11,9 +11,10 @@ the host.
 
 On a mesh with a ``"model"`` axis the steps take ``tp``, a
 ``repro_torch.models.tensor_parallel.TensorParallel``: the base params are
-this rank's pieces, the adapters whole (cut to the rank's columns by
+this rank's pieces, the adapters whole (cut to what the rank reads by
 ``tp.local_lora``), and the loss, its gradients and the greedy tokens those
-of the whole model (``tp.reduce_lora_grads``, ``tp.argmax``).
+of the whole model (``tp.reduce_lora_grads``, ``tp.argmax``), for every
+family.
 
 The serving steps take the adapter bank scan-major, ``{spec: {"A": [L, G,
 r, in], "B": [L, G, out, r]}}`` (``AdapterStore.scan_stack``), the layout
@@ -149,7 +150,7 @@ def make_greedy_generate(cfg: ModelConfig, *, lora_scale: float,
         P = xs.shape[1]
         cache = T.init_cache(cfg, params, B, P + gen_len,
                              vision=vision if cross else None, lora=lora,
-                             lora_scale=lora_scale)
+                             lora_scale=lora_scale, tp=tp)
         if stream:
             for t in range(P - 1):
                 serve_step(params, lora, cache, None, t,
@@ -286,8 +287,9 @@ def make_multi_adapter_serve_step(cfg: ModelConfig, *, lora_scale: float,
 
     ``lora_backend``: ``"gather"`` gathers each row's (A, B) pair per LoRA
     site in plain PyTorch; ``"grouped"`` runs the BGMV kernel.  With
-    ``tp`` the bank holds the rank's ``B`` columns (``tp.bank_b``) and
-    the logits are its vocabulary columns."""
+    ``tp`` the bank holds the rank's ``B`` rows (``tp.bank_b``) and, at
+    a row-parallel site, its ``A`` columns (``tp.bank_a``), and the logits
+    are its vocabulary columns."""
     kernel = _BACKENDS[lora_backend]
 
     def multi_serve_step(params, adapters, adapter_idx, cache, embeds, pos):

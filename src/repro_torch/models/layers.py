@@ -264,17 +264,19 @@ def attention_forward(params, x, cfg: ModelConfig, *, kind: str, lora=None,
     [B, P, kv_in] through ``cross_kv``, ``pad_mask`` [B, P] over them, and
     the output scaled by ``tanh(gate)`` when the params carry a gate.
     ``tp`` (a ``TensorParallel`` that splits attention): ``params`` and
-    ``lora`` hold this rank's heads, and ``wo``'s partial sums are added
-    over the mesh."""
+    ``lora`` hold this rank's heads (a cross layer's K / V its KV heads of
+    ``kv_src``, which the caller passes through ``tp.copy`` once for all
+    layers where it takes a gradient), and ``wo``'s partial sums are added
+    over the mesh before the gate."""
+    split = tp is not None and tp.attn
+    if split:
+        x = tp.copy(x)
     if kind == "cross_attn":
         q = _q(params, x, cfg, lora, lora_scale)
         k, v = cross_kv(params, kv_src, cfg, lora, lora_scale)
         out = multihead_attention(q, k, v, causal=False, pad_mask=pad_mask)
-        return _gated(params, out.reshape(x.shape[0], x.shape[1], -1)
-                      @ params["wo"])
-    split = tp is not None and tp.attn
-    if split:
-        x = tp.copy(x)
+        y = out.reshape(x.shape[0], x.shape[1], -1) @ params["wo"]
+        return _gated(params, tp.reduce(y) if split else y)
     q, k, v = _qkv(params, x, x, cfg, lora, lora_scale)
     B, S = x.shape[0], x.shape[1]
     if positions is None:
@@ -302,8 +304,8 @@ def _q(params, x, cfg: ModelConfig, lora, lora_scale, lora_idx=None,
                                 kernel=lora_kernel)
     if "bq" in params:
         q = q + params["bq"]
-    return q.reshape(x.shape[0], x.shape[1], cfg.num_heads,
-                     cfg.resolved_head_dim)
+    hd = cfg.resolved_head_dim
+    return q.reshape(x.shape[0], x.shape[1], -1, hd)
 
 
 def cross_kv(params, src, cfg: ModelConfig, lora=None,
@@ -314,8 +316,9 @@ def cross_kv(params, src, cfg: ModelConfig, lora=None,
     values the forward reads (the reference's ``init_cache`` leaves
     ``wv``'s adapter out).  ``src`` is cast to the weights' dtype, as the
     reference's ``init_cache`` casts it (its forward lets an f32 source
-    promote a bf16 stack to f32 from the first cross layer on)."""
-    kv, hd = cfg.num_kv_heads, cfg.resolved_head_dim
+    promote a bf16 stack to f32 from the first cross layer on).  The KV
+    heads are the weights' (a tensor-parallel rank's own)."""
+    hd = cfg.resolved_head_dim
     src = src.to(params["wk"].dtype)
     k = src @ params["wk"]
     v = lora_matmul(src, params["wv"], lora.get("wv") if lora else None,
@@ -323,8 +326,8 @@ def cross_kv(params, src, cfg: ModelConfig, lora=None,
     if "bk" in params:
         k = k + params["bk"]
         v = v + params["bv"]
-    B = src.shape[0]
-    return k.reshape(B, -1, kv, hd), v.reshape(B, -1, kv, hd)
+    B, P = src.shape[:2]
+    return k.reshape(B, P, -1, hd), v.reshape(B, P, -1, hd)
 
 
 def _gated(params, y):
@@ -357,14 +360,15 @@ def attention_decode_batch(params, x, cache, cfg: ModelConfig, *, kind: str,
     D]}`` of ``cross_kv`` (an optional ``"mask"`` [B, P]); the C queries
     attend to all of it and nothing is written."""
     B, C = x.shape[:2]
+    split = tp is not None and tp.attn
+    if split:
+        x = tp.copy(x)
     if kind == "cross_attn":
         q = _q(params, x, cfg, lora, lora_scale, lora_idx, lora_kernel)
         out = multihead_attention(q, cache["k"], cache["v"], causal=False,
                                   pad_mask=cache.get("mask"), chunked=False)
-        return _gated(params, out.reshape(B, C, -1) @ params["wo"]), cache
-    split = tp is not None and tp.attn
-    if split:
-        x = tp.copy(x)
+        y = out.reshape(B, C, -1) @ params["wo"]
+        return _gated(params, tp.reduce(y) if split else y), cache
     q, k_new, v_new = _qkv(params, x, x, cfg, lora, lora_scale,
                            lora_idx=lora_idx, lora_kernel=lora_kernel)
     q_pos = pos[:, None] + torch.arange(C, device=pos.device)    # [B, C]
@@ -438,9 +442,10 @@ def init_mla(cfg: ModelConfig, *, n: int, generator: torch.Generator, device,
 
 def _mla_q(params, x, cfg: ModelConfig, lora, lora_scale, lora_idx=None,
            lora_kernel: bool = False):
-    """(q_nope, q_rope) [B, S, H, ·]; with ``lora_idx`` the q-side LoRA is a
+    """(q_nope, q_rope) [B, S, H, ·] (H: the weights' heads, a
+    tensor-parallel rank's own); with ``lora_idx`` the q-side LoRA is a
     stacked bank applied per row through the grouped (BGMV) path."""
-    m, h = cfg.mla, cfg.num_heads
+    m = cfg.mla
     name = "wq" if "wq" in params else "wuq"
     src = x if name == "wq" else x @ params["wdq"]
     entry = lora.get(name) if lora else None
@@ -450,7 +455,7 @@ def _mla_q(params, x, cfg: ModelConfig, lora, lora_scale, lora_idx=None,
         q = grouped_lora_matmul(src, params[name], entry, lora_idx,
                                 lora_scale, kernel=lora_kernel)
     B, S = x.shape[:2]
-    q = q.reshape(B, S, h, m.qk_nope_head_dim + m.qk_rope_head_dim)
+    q = q.reshape(B, S, -1, m.qk_nope_head_dim + m.qk_rope_head_dim)
     return q[..., :m.qk_nope_head_dim], q[..., m.qk_nope_head_dim:]
 
 
@@ -465,10 +470,24 @@ def _mla_effective_wkv_b(params, lora, lora_scale):
     return w
 
 
+def _mla_heads(params, cfg: ModelConfig) -> int:
+    """The heads of these weights (a tensor-parallel rank's own)."""
+    m = cfg.mla
+    return params["wkv_b"].shape[-1] // (m.qk_nope_head_dim + m.v_head_dim)
+
+
 def mla_forward(params, x, cfg: ModelConfig, *, lora=None,
-                lora_scale: float = 1.0, positions=None, pad_mask=None):
-    """Full-sequence (training / prefill) MLA with expanded K/V."""
-    m, h = cfg.mla, cfg.num_heads
+                lora_scale: float = 1.0, positions=None, pad_mask=None,
+                tp=None):
+    """Full-sequence (training / prefill) MLA with expanded K/V.  ``tp``
+    (a ``TensorParallel`` that splits MLA): ``wuq`` / ``wq``, ``wkv_b``
+    and their adapters hold this rank's heads, ``wo`` its rows, and
+    ``wo``'s partial sums are added over the mesh; the compressed
+    latents are whole on every rank."""
+    m, h = cfg.mla, _mla_heads(params, cfg)
+    split = tp is not None and tp.mla
+    if split:
+        x = tp.copy(x)
     B, S = x.shape[:2]
     if positions is None:
         positions = torch.arange(S, device=x.device)
@@ -484,12 +503,13 @@ def mla_forward(params, x, cfg: ModelConfig, *, lora=None,
     q = torch.cat([q_nope, q_rope], -1)
     out = multihead_attention(q, k, v, causal=True, q_pos=positions,
                               k_pos=positions, pad_mask=pad_mask)
-    return out.reshape(B, S, -1) @ params["wo"]
+    y = out.reshape(B, S, -1) @ params["wo"]
+    return tp.reduce(y) if split else y
 
 
 def mla_decode_batch(params, x, cache, cfg: ModelConfig, *, pos, valid=None,
                      lora=None, lora_scale: float = 1.0, lora_idx=None,
-                     lora_kernel: bool = False):
+                     lora_kernel: bool = False, tp=None):
     """Absorbed-weight MLA decode over the compressed cache ``{"c_kv": [B,
     Smax, c], "k_rope": [B, Smax, rd]}`` at per-row positions ``pos`` [B]
     (``x`` [B, C, d]; ``valid`` [B, C] masks ragged chunk tails, whose cache
@@ -501,8 +521,13 @@ def mla_decode_batch(params, x, cache, cfg: ModelConfig, *, pos, valid=None,
     is given; ``wkv_b``'s LoRA folds into an effective weight — per bank
     entry ([G, c, ·]) gathered per row in the banked case — so
     ``lora_kernel`` steers the q side only.  The reference's scalar-position
-    ``mla_decode`` is this function with every row at one position."""
-    m, h = cfg.mla, cfg.num_heads
+    ``mla_decode`` is this function with every row at one position.
+    ``tp``: as in :func:`mla_forward` (the absorbed ``w_uk`` / ``w_uv``
+    are this rank's heads; the cache is whole)."""
+    m, h = cfg.mla, _mla_heads(params, cfg)
+    split = tp is not None and tp.mla
+    if split:
+        x = tp.copy(x)
     B, C = x.shape[:2]
     q_pos = pos[:, None] + torch.arange(C, device=pos.device)       # [B, C]
     q_nope, q_rope = _mla_q(params, x, cfg, lora, lora_scale, lora_idx,
@@ -543,7 +568,7 @@ def mla_decode_batch(params, x, cache, cfg: ModelConfig, *, pos, valid=None,
     ctx_c = torch.einsum("bhst,btc->bshc", p, c_kv.float())
     ctx_v = torch.einsum(f"bshc,{lead}chv->bshv", ctx_c, w_uv)
     y = ctx_v.reshape(B, C, -1).to(x.dtype) @ params["wo"]
-    return y, cache
+    return (tp.reduce(y) if split else y), cache
 
 
 # ---------------------------------------------------------------------------
@@ -565,10 +590,12 @@ def mlp_forward(params, x, tp=None):
     ``w3`` hold this rank's ``d_ff`` columns, ``w2`` its rows, and the
     partial sums are added over the mesh."""
     if tp is None or not tp.mlp:
-        return (F.silu(x @ params["w1"]) * (x @ params["w3"])) @ params["w2"]
-    x = tp.copy(x)
-    return tp.reduce((F.silu(x @ params["w1"]) * (x @ params["w3"]))
-                     @ params["w2"])
+        return _swiglu(params, x)
+    return tp.reduce(_swiglu(params, tp.copy(x)))
+
+
+def _swiglu(params, x):
+    return (F.silu(x @ params["w1"]) * (x @ params["w3"])) @ params["w2"]
 
 
 def init_moe(cfg: ModelConfig, *, n: int, generator: torch.Generator,
@@ -626,7 +653,7 @@ def moe_route(router: torch.Tensor, xf: torch.Tensor, cfg: ModelConfig):
     return probs, gates, ids, pos, pos < moe_capacity(cfg, T)
 
 
-def moe_forward(params, x, cfg: ModelConfig):
+def moe_forward(params, x, cfg: ModelConfig, tp=None):
     """GShard-style capacity dispatch without a [T, E, C] one-hot: picks
     are copied into ``[E, C, d]`` expert buffers, every expert runs its
     SwiGLU over its C rows, and each token gathers back its K outputs.
@@ -635,8 +662,16 @@ def moe_forward(params, x, cfg: ModelConfig):
 
     The combine sums a token's K gated outputs in ascending expert order
     (the order of the reference's scatter-add) from a [T, K, d] gather, so
-    no atomic adds reorder it from run to run."""
+    no atomic adds reorder it from run to run.
+
+    ``tp`` (a ``TensorParallel`` that splits MoE): the experts' ``w1`` /
+    ``w3`` and the shared expert's hold this rank's ``d_ff`` columns,
+    ``w2`` its rows.  The router runs whole on every rank, so every rank
+    routes, places and drops alike; each rank combines its partial
+    outputs in the same order, and the routed and shared partial sums
+    pass one all-reduce.  ``aux`` is the same on every rank."""
     mo = cfg.moe
+    split = tp is not None and tp.moe
     B, S, d = x.shape
     T = B * S
     E, K = mo.num_experts, mo.experts_per_token
@@ -646,6 +681,10 @@ def moe_forward(params, x, cfg: ModelConfig):
     one_hot = F.one_hot(ids[:, 0], E).float()
     aux = mo.aux_loss_coef * E * (probs.mean(0) * one_hot.mean(0)).sum()
 
+    if split:
+        # the experts' inputs and the gates meet this rank's columns: both
+        # take the ranks' partial gradients
+        xf, gates = tp.copy(xf), tp.copy(gates)
     # dispatch: kept picks to their (expert, place) row, dropped ones to a
     # spare row that is cut off
     slot = torch.where(kept, ids * C + pos, E * C).reshape(-1)
@@ -666,8 +705,9 @@ def moe_forward(params, x, cfg: ModelConfig):
     for k in range(1, K):
         y = y + y_k[:, k]
     if "shared" in params:
-        y = y + mlp_forward(params["shared"], xf)
-    return y.reshape(B, S, d), aux
+        y = y + _swiglu(params["shared"], xf)
+    y = y.reshape(B, S, d)
+    return (tp.reduce(y) if split else y), aux
 
 
 # ---------------------------------------------------------------------------
@@ -780,19 +820,43 @@ def ssd_chunked(xh, dt, A, Bm, Cm, chunk: int):
     return y, h
 
 
-def _mamba_split(cfg: ModelConfig, t: torch.Tensor):
-    s = cfg.ssm
-    d_in = s.expand * cfg.d_model
-    return torch.split(t, [d_in, d_in + 2 * s.state_dim,
-                           d_in // s.head_dim], dim=-1)
+def _mamba_heads(params, cfg: ModelConfig) -> tuple[int, int]:
+    """(SSM heads, d_in) of these weights (a tensor-parallel rank's)."""
+    H = params["A_log"].shape[-1]
+    return H, H * cfg.ssm.head_dim
 
 
-def mamba_forward(params, x, cfg: ModelConfig):
-    """Full-sequence Mamba-2 block: x [B, S, d] → [B, S, d]."""
+def _mamba_split(cfg: ModelConfig, t: torch.Tensor, H: int):
+    d_in = H * cfg.ssm.head_dim
+    return torch.split(t, [d_in, d_in + 2 * cfg.ssm.state_dim, H], dim=-1)
+
+
+def _gate_norm(y, scale, cfg: ModelConfig, tp=None):
+    """The gated RMS norm over ``d_in``.  ``tp``: ``y`` holds this rank's
+    heads; the mean square is each rank's mean times its share of
+    ``d_in``, summed over the mesh (the share is exactly 1 on one rank,
+    where this is ``rms_norm``)."""
+    if tp is None:
+        return rms_norm(y, scale, cfg.norm_eps)
+    y32 = y.float()
+    share = y.shape[-1] / (cfg.ssm.expand * cfg.d_model)
+    var = tp.sum(y32.square().mean(-1, keepdim=True) * share)
+    return (y32 * torch.rsqrt(var + cfg.norm_eps) * scale.float()).to(y.dtype)
+
+
+def mamba_forward(params, x, cfg: ModelConfig, tp=None):
+    """Full-sequence Mamba-2 block: x [B, S, d] → [B, S, d].  ``tp`` (a
+    ``TensorParallel`` that splits Mamba): the weights are this rank's
+    pieces — ``in_proj``'s ``z`` / ``xs`` / ``dt`` columns and the conv's
+    ``xs`` channels of its heads beside the whole ``B`` / ``C``, its
+    heads' ``A_log`` / ``D`` / ``dt_bias`` / ``gate_norm`` and
+    ``out_proj``'s rows — and the heads' scan needs no collective."""
     s = cfg.ssm
-    d_in = s.expand * cfg.d_model
-    H = d_in // s.head_dim
-    z, xBC, dt = _mamba_split(cfg, x @ params["in_proj"])
+    H, d_in = _mamba_heads(params, cfg)
+    split = tp is not None and tp.mamba
+    if split:
+        x = tp.copy(x)
+    z, xBC, dt = _mamba_split(cfg, x @ params["in_proj"], H)
     xBC = F.silu(_causal_conv(xBC, params["conv_w"], params["conv_b"]))
     xs, Bm, Cm = torch.split(xBC, [d_in, s.state_dim, s.state_dim], dim=-1)
     B_, S_ = x.shape[:2]
@@ -802,23 +866,30 @@ def mamba_forward(params, x, cfg: ModelConfig):
     y, _ = ssd_chunked(xh, dt, A, Bm, Cm, s.chunk_size)
     y = y + params["D"][None, None, :, None] * xh.float()
     y = y.reshape(B_, S_, d_in).to(x.dtype)
-    y = rms_norm(y * F.silu(z), params["gate_norm"], cfg.norm_eps)
-    return y @ params["out_proj"]
+    y = _gate_norm(y * F.silu(z), params["gate_norm"], cfg,
+                   tp if split else None)
+    out = y @ params["out_proj"]
+    return tp.reduce(out) if split else out
 
 
 def mamba_decode(params, x, cache, cfg: ModelConfig, *, lora=None,
                  lora_scale: float = 1.0, lora_idx=None,
-                 lora_kernel: bool = False):
+                 lora_kernel: bool = False, tp=None):
     """One-token recurrent step: x [B, 1, d]; ``cache`` {"h": [B, H, P, N]
     f32, "conv": [B, W-1, C]} is updated IN PLACE and returned.
 
     As in the reference, ``lora`` applies only in the banked form
     (``lora_idx``, each row its own adapter through the grouped (BGMV)
     path); single-adapter callers fold the adapter into ``in_proj`` /
-    ``out_proj`` upstream."""
+    ``out_proj`` upstream.  ``tp``: as in :func:`mamba_forward`; the
+    cache holds this rank's heads of ``h`` and its conv channels, and a
+    bank holds ``in_proj``'s ``B`` rows and ``out_proj``'s ``A`` columns
+    of the rank."""
     s = cfg.ssm
-    d_in = s.expand * cfg.d_model
-    H = d_in // s.head_dim
+    H, d_in = _mamba_heads(params, cfg)
+    split = tp is not None and tp.mamba
+    if split:
+        x = tp.copy(x)
     B = x.shape[0]
     if lora_idx is not None:
         proj = grouped_lora_matmul(x, params["in_proj"],
@@ -827,7 +898,7 @@ def mamba_decode(params, x, cache, cfg: ModelConfig, *, lora=None,
                                    kernel=lora_kernel)[:, 0]
     else:
         proj = (x @ params["in_proj"])[:, 0]                 # [B, proj_out]
-    z, xBC, dt = _mamba_split(cfg, proj)
+    z, xBC, dt = _mamba_split(cfg, proj, H)
 
     conv_buf = torch.cat([cache["conv"], xBC[:, None, :]], dim=1)   # [B,W,C]
     xBC = (torch.einsum("bwc,wc->bc", conv_buf.float(),
@@ -848,14 +919,15 @@ def mamba_decode(params, x, cache, cfg: ModelConfig, *, lora=None,
     y = torch.einsum("bn,bhpn->bhp", Cm.float(), h)
     y = y + params["D"][None, :, None] * xh
     y = y.reshape(B, 1, d_in).to(x.dtype)
-    y = rms_norm(y * F.silu(z[:, None, :]), params["gate_norm"], cfg.norm_eps)
+    y = _gate_norm(y * F.silu(z[:, None, :]), params["gate_norm"], cfg,
+                   tp if split else None)
     if lora_idx is not None:
         out = grouped_lora_matmul(y, params["out_proj"],
                                   lora.get("out_proj") if lora else None,
                                   lora_idx, lora_scale, kernel=lora_kernel)
     else:
         out = y @ params["out_proj"]
-    return out, cache
+    return (tp.reduce(out) if split else out), cache
 
 
 __all__ = ["NEG_INF", "apply_rope", "attention_decode_batch",

@@ -77,27 +77,34 @@ def _init_sublayer(cfg: ModelConfig, kind: str, i: int, g: dict,
 
 def init_params(cfg: ModelConfig, *, seed: int = 0,
                 generator: torch.Generator | None = None, device=None,
-                dtype=None) -> Tree:
+                dtype=None, tp=None) -> Tree:
     """Random base weights drawn from a seeded ``torch.Generator`` on
     ``device`` (``None`` = CUDA; raises without one).  The distributions are
     the reference's; the draws are torch's own.  ``dtype`` (default
     ``cfg.dtype``) is every leaf's but the ones the reference keeps in f32
     whatever the config says: the MoE router and Mamba's ``A_log``, ``D``
     and ``dt_bias``.  A vision cross layer's gate starts closed (0), as
-    the reference's does."""
+    the reference's does.
+
+    ``tp`` (a ``TensorParallel``): this rank's pieces of the same tree
+    (the same draws in the same order), each sublayer cut as soon as it
+    is drawn, so no more than one sublayer is ever whole on the device — a
+    model larger than one device's memory starts on its mesh this way."""
     device = resolve_device(device)
     dt = torch_dtype(dtype or cfg.dtype)
     if generator is None:
         generator = torch.Generator(device=device).manual_seed(seed)
     g = dict(generator=generator, device=device, dtype=dt)
+    cut = (lambda t: t) if tp is None else tp.shard_params
     d = cfg.d_model
-    params: dict = {
+    params: dict = cut({
         "embed": L.normal((cfg.vocab_size, d), 0.02, **g),
         "final_ln": torch.ones((d,), device=device, dtype=dt),
-    }
+    })
     if not cfg.tie_embeddings:
-        params["unembed"] = L.normal((d, cfg.vocab_size), d ** -0.5, **g)
-    params["blocks"] = {f"s{i}": _init_sublayer(cfg, kind, i, g)
+        params.update(cut({"unembed": L.normal((d, cfg.vocab_size),
+                                               d ** -0.5, **g)}))
+    params["blocks"] = {f"s{i}": cut(_init_sublayer(cfg, kind, i, g))
                         for i, kind in enumerate(cfg.pattern)}
     if cfg.family == "vlm" and cfg.vision_mode == "prefix":
         params["vision_proj"] = L.normal((cfg.vision_dim, d),
@@ -107,14 +114,14 @@ def init_params(cfg: ModelConfig, *, seed: int = 0,
             "in_proj": L.normal((cfg.audio_dim, d), cfg.audio_dim ** -0.5,
                                 **g),
             "final_ln": torch.ones((d,), device=device, dtype=dt),
-            "blocks": {"s0": _init_sublayer(cfg, "attn", 0, g,
-                                            n=cfg.encoder_layers)}}
+            "blocks": {"s0": cut(_init_sublayer(cfg, "attn", 0, g,
+                                                n=cfg.encoder_layers))}}
         # the decoder's ungated cross-attention over the encoder output
         for sp in params["blocks"].values():
             sp["lnx"] = torch.ones((cfg.num_blocks, d), device=device,
                                    dtype=dt)
-            sp["dec_cross"] = L.init_attention(cfg, n=cfg.num_blocks,
-                                               kv_in=d, **g)
+            sp.update(cut({"dec_cross": L.init_attention(
+                cfg, n=cfg.num_blocks, kv_in=d, **g)}))
     return params
 
 
@@ -199,7 +206,7 @@ def _feed_forward(cfg: ModelConfig, bp: dict, x, tp=None):
     returns (x, aux)."""
     if "moe" in bp:
         h2 = L.rms_norm(x, bp["ln2"], cfg.norm_eps)
-        y, aux = L.moe_forward(bp["moe"], h2, cfg)
+        y, aux = L.moe_forward(bp["moe"], h2, cfg, tp)
         return x + y, aux
     if "ffn" in bp:
         h2 = L.rms_norm(x, bp["ln2"], cfg.norm_eps)
@@ -215,8 +222,11 @@ def _run_blocks(cfg: ModelConfig, blocks: Tree, lora: Tree | None, x, *,
     or Mamba-2), on enc-dec stacks the cross-attention over ``enc_out``
     (keys masked by ``enc_mask``), and the feed-forward, all residual.
     Only the block-stacked ``s*`` LoRA entries ride the loop.  Returns (x,
-    the MoE aux losses summed, f32)."""
+    the MoE aux losses summed, f32).  ``tp``: every sublayer runs its
+    rank's pieces (``repro_torch.models.tensor_parallel``)."""
     lora = {k: v for k, v in (lora or {}).items() if k.startswith("s")}
+    if enc_out is not None and tp is not None and tp.attn:
+        enc_out = tp.copy(enc_out)     # its gradient: the ranks' partials
     aux_tot = torch.zeros((), dtype=torch.float32, device=x.device)
     for l in range(cfg.num_blocks):
         bp = _layer(blocks, l)
@@ -229,16 +239,16 @@ def _run_blocks(cfg: ModelConfig, blocks: Tree, lora: Tree | None, x, *,
                 y = L.mla_forward(sp["mla"], h, cfg,
                                   lora=_sub_lora(lt, f"{pre}.mla"),
                                   lora_scale=lora_scale, positions=positions,
-                                  pad_mask=pad_mask)
+                                  pad_mask=pad_mask, tp=tp)
             elif "mamba" in sp:
                 mp = _fold_mamba(sp["mamba"], _sub_lora(lt, f"{pre}.mamba"),
                                  lora_scale)
-                y = L.mamba_forward(mp, h, cfg)
+                y = L.mamba_forward(mp, h, cfg, tp)
             elif "cross" in sp:
                 y = L.attention_forward(
                     sp["cross"], h, cfg, kind="cross_attn",
                     lora=_sub_lora(lt, f"{pre}.cross"), lora_scale=lora_scale,
-                    kv_src=vision)
+                    kv_src=vision, tp=tp)
             else:
                 y = L.attention_forward(
                     sp["attn"], h, cfg, kind=kind,
@@ -250,7 +260,8 @@ def _run_blocks(cfg: ModelConfig, blocks: Tree, lora: Tree | None, x, *,
                 x = x + L.attention_forward(
                     sp["dec_cross"], hx, cfg, kind="cross_attn",
                     lora=_sub_lora(lt, f"{pre}.dec_cross"),
-                    lora_scale=lora_scale, kv_src=enc_out, pad_mask=enc_mask)
+                    lora_scale=lora_scale, kv_src=enc_out, pad_mask=enc_mask,
+                    tp=tp)
             x, aux = _feed_forward(cfg, sp, x, tp)
             if aux is not None:
                 aux_l = aux_l + aux
@@ -259,11 +270,13 @@ def _run_blocks(cfg: ModelConfig, blocks: Tree, lora: Tree | None, x, *,
 
 
 def encode(cfg: ModelConfig, params: Tree, audio, lora=None,
-           lora_scale: float = 1.0, audio_mask=None):
+           lora_scale: float = 1.0, audio_mask=None, tp=None):
     """The enc-dec encoder: ``audio`` [B, P, audio_dim] frame embeddings
     through ``encoder_layers`` bidirectional self-attention layers (RoPE,
     keys masked by ``audio_mask`` [B, P]) with the ``enc.attn.wq`` /
-    ``enc.attn.wv`` adapters, then the final norm.  Returns [B, P, d]."""
+    ``enc.attn.wv`` adapters, then the final norm.  Returns [B, P, d].
+    ``tp``: the layers' attention and MLP run the rank's pieces; the
+    frontend ``in_proj`` is whole, and so is the output."""
     enc = params["encoder"]
     x = audio.to(enc["in_proj"].dtype) @ enc["in_proj"]
     lora = {k[len("enc."):]: v for k, v in (lora or {}).items()
@@ -274,13 +287,17 @@ def encode(cfg: ModelConfig, params: Tree, audio, lora=None,
         bp = _layer(enc["blocks"]["s0"], l)
         lt = _sub_lora(_layer(lora, l), "attn")
         hn = L.rms_norm(x, bp["ln1"], cfg.norm_eps)
+        split = tp is not None and tp.attn
+        if split:
+            hn = tp.copy(hn)
         q, k, v = L._qkv(bp["attn"], hn, hn, cfg, lt, lora_scale)
         q = L.apply_rope(q, pos, cfg.rope_theta)
         k = L.apply_rope(k, pos, cfg.rope_theta)
         o = L.multihead_attention(q, k, v, causal=False, pad_mask=audio_mask)
-        x = x + o.reshape(x.shape[0], S, -1) @ bp["attn"]["wo"]
+        y = o.reshape(x.shape[0], S, -1) @ bp["attn"]["wo"]
+        x = x + (tp.reduce(y) if split else y)
         x = x + L.mlp_forward(bp["ffn"], L.rms_norm(x, bp["ln2"],
-                                                    cfg.norm_eps))
+                                                    cfg.norm_eps), tp)
     return L.rms_norm(x, enc["final_ln"], cfg.norm_eps)
 
 
@@ -313,7 +330,8 @@ def forward(cfg: ModelConfig, params: Tree, tokens, *, lora=None,
                                   pad_mask], dim=1)
     enc_out = None
     if cfg.family == "encdec":
-        enc_out = encode(cfg, params, audio, lora, lora_scale, audio_mask)
+        enc_out = encode(cfg, params, audio, lora, lora_scale, audio_mask,
+                         tp)
     x, aux = _run_blocks(cfg, params["blocks"], lora, x,
                          lora_scale=lora_scale, positions=positions,
                          pad_mask=pad_mask,
@@ -376,7 +394,7 @@ def _static_kv(cfg: ModelConfig, stacked: Tree, src, lora, lora_scale):
 
 def init_cache(cfg: ModelConfig, params: Tree, batch: int, max_len: int, *,
                vision=None, audio=None, lora=None,
-               lora_scale: float = 1.0) -> Tree:
+               lora_scale: float = 1.0, tp=None) -> Tree:
     """Per-sublayer decode state, stacked over blocks, on the device and in
     the dtype of ``params["embed"]``: attention K/V ``{"k","v": [n, batch,
     S, KV, D]}`` (local layers hold a ring of ``min(max_len,
@@ -390,7 +408,12 @@ def init_cache(cfg: ModelConfig, params: Tree, batch: int, max_len: int, *,
     ``s{i}_dec_cross`` those of the encoded ``audio``.  Unlike the
     reference's, they carry ``lora``'s adapter (``cross.wv``,
     ``dec_cross.wv`` and the encoder's ``enc.*``), so that the decode with
-    that adapter equals the forward."""
+    that adapter equals the forward.
+
+    ``tp``: ``params`` and ``lora`` are a tensor-parallel rank's pieces
+    (``lora`` through ``tp.local_lora``), and every head count and width
+    comes from the weights: the rank's K/V heads (static ones too) and
+    Mamba heads of ``h`` and conv channels; MLA's latents stay whole."""
     ref = params["embed"]
     hd, n = cfg.resolved_head_dim, cfg.num_blocks
     cache: dict = {}
@@ -400,13 +423,13 @@ def init_cache(cfg: ModelConfig, params: Tree, batch: int, max_len: int, *,
                 cfg, params["blocks"][f"s{i}"]["cross"], vision,
                 _sub_lora(lora, f"s{i}.cross"), lora_scale)
         elif kind == "mamba":
-            s = cfg.ssm
-            d_in = s.expand * cfg.d_model
+            s, mp = cfg.ssm, params["blocks"][f"s{i}"]["mamba"]
             cache[f"s{i}"] = {
-                "h": ref.new_zeros((n, batch, d_in // s.head_dim, s.head_dim,
-                                    s.state_dim), dtype=torch.float32),
+                "h": ref.new_zeros((n, batch, mp["A_log"].shape[-1],
+                                    s.head_dim, s.state_dim),
+                                   dtype=torch.float32),
                 "conv": ref.new_zeros((n, batch, s.conv_width - 1,
-                                       d_in + 2 * s.state_dim))}
+                                       mp["conv_w"].shape[-1]))}
         elif cfg.mla is not None:
             m = cfg.mla
             cache[f"s{i}"] = {
@@ -423,7 +446,7 @@ def init_cache(cfg: ModelConfig, params: Tree, batch: int, max_len: int, *,
             cache[f"s{i}"] = {"k": ref.new_zeros(shape),
                               "v": ref.new_zeros(shape)}
     if cfg.family == "encdec":
-        enc_out = encode(cfg, params, audio, lora, lora_scale)
+        enc_out = encode(cfg, params, audio, lora, lora_scale, tp=tp)
         for i in range(cfg.period):
             cache[f"s{i}_dec_cross"] = _static_kv(
                 cfg, params["blocks"][f"s{i}"]["dec_cross"], enc_out,
@@ -481,10 +504,11 @@ def decode_chunk(cfg: ModelConfig, params: Tree, cache: Tree, embeds, pos, *,
     carry that adapter's ``cross.wv`` / ``dec_cross.wv`` / ``enc.*``
     entries); with a bank both families raise, as the reference does.
 
-    ``tp`` (a ``TensorParallel``, attention stacks): ``params``, the
-    adapters and the cache hold this rank's pieces (its heads, its
-    ``d_ff`` columns, a bank's ``B`` columns at the split sites) and the
-    logits are its vocabulary columns."""
+    ``tp`` (a ``TensorParallel``): ``params``, the adapters and the cache
+    hold this rank's pieces (its heads, its ``d_ff`` and expert columns,
+    a bank's ``B`` rows at the column-parallel sites and ``A`` columns at
+    Mamba's row-parallel ``out_proj``) and the logits are its vocabulary
+    columns."""
     C = embeds.shape[1]
     if logits and C != 1:
         raise ValueError("logits=True needs C == 1 (prefill discards them)")
@@ -511,17 +535,18 @@ def decode_chunk(cfg: ModelConfig, params: Tree, cache: Tree, embeds, pos, *,
                 lo = _sub_lora(lt, f"{pre}.mamba")
                 if adapter_idx is None:
                     y, _ = L.mamba_decode(_fold_mamba(sp["mamba"], lo,
-                                                      lora_scale), hn, ci, cfg)
+                                                      lora_scale), hn, ci, cfg,
+                                          tp=tp)
                 else:
                     y, _ = L.mamba_decode(
                         sp["mamba"], hn, ci, cfg, lora=lo,
                         lora_scale=lora_scale, lora_idx=adapter_idx,
-                        lora_kernel=lora_kernel)
+                        lora_kernel=lora_kernel, tp=tp)
             elif "mla" in sp:
                 y, _ = L.mla_decode_batch(
                     sp["mla"], hn, ci, cfg, pos=pos, valid=valid,
                     lora=_sub_lora(lt, f"{pre}.mla"), lora_scale=lora_scale,
-                    lora_idx=adapter_idx, lora_kernel=lora_kernel)
+                    lora_idx=adapter_idx, lora_kernel=lora_kernel, tp=tp)
             else:
                 mixer = "cross" if "cross" in sp else "attn"
                 y, _ = L.attention_decode_batch(
@@ -537,7 +562,7 @@ def decode_chunk(cfg: ModelConfig, params: Tree, cache: Tree, embeds, pos, *,
                     {k: c[l] for k, c in cache[f"{pre}_dec_cross"].items()},
                     cfg, kind="cross_attn", pos=pos,
                     lora=_sub_lora(lt, f"{pre}.dec_cross"),
-                    lora_scale=lora_scale)
+                    lora_scale=lora_scale, tp=tp)
                 h = h + y
             h, _ = _feed_forward(cfg, sp, h, tp)
     if not logits:

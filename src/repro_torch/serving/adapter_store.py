@@ -19,11 +19,13 @@ On a serving mesh (``mesh=``, or :meth:`set_mesh`, which a
 ``ServingEngine`` calls with its tensor-parallel split) every rank keeps
 the same host copies and pager, so every rank pages the same adapters
 into the same slots.  With a ``"model"`` axis a rank's ``B`` bank holds
-only its own contiguous columns at the column-parallel sites (the BGMV
-kernel takes no views).  The slot axis is not split over ``"data"``, as
-the reference splits it when the slots divide (its ``_bank_sharding``):
-an engine's slot rows on one rank may read any bank slot, so a split
-bank would have to be gathered for every decode step.
+only its own output rows at the column-parallel sites (Mamba's
+``in_proj`` cut segment by segment) and its ``A`` bank only its input
+columns at the row-parallel ones (Mamba's ``out_proj``), each
+contiguous (the BGMV kernel takes no views).  The slot axis is not split
+over ``"data"``, as the reference splits it when the slots divide (its
+``_bank_sharding``): an engine's slot rows on one rank may read any bank
+slot, so a split bank would have to be gathered for every decode step.
 """
 
 from __future__ import annotations
@@ -104,9 +106,9 @@ class AdapterStore:
 
     def set_mesh(self, mesh, tp=None) -> None:
         """Adopt a serving mesh and, with ``tp`` (the
-        ``TensorParallel`` of the model the bank serves), its split of the
-        ``B`` columns; a bank already built is rebuilt under them from the
-        host copies of its residents."""
+        ``TensorParallel`` of the model the bank serves), its cut of the
+        ``A`` and ``B`` leaves; a bank already built is rebuilt under them
+        from the host copies of its residents."""
         if not isinstance(mesh, Mesh):
             raise TypeError(f"a serving mesh is a repro_torch.launch.mesh."
                             f"Mesh, got {type(mesh).__name__}")
@@ -122,9 +124,9 @@ class AdapterStore:
 
     def _cut(self, name: str, part: str, x: torch.Tensor) -> torch.Tensor:
         """A host leaf ``[L, ...]`` as this rank's bank holds it."""
-        if self._tp is None or part != "B":
+        if self._tp is None:
             return x
-        return self._tp.bank_b(name, x)
+        return (self._tp.bank_a if part == "A" else self._tp.bank_b)(name, x)
 
     def _write(self, bank, slot: int, host: Tree) -> None:
         for name, entry in bank.items():

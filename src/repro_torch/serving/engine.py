@@ -50,9 +50,11 @@ the position mirrors — while the device state splits: each rank of the
 ``"data"`` axis holds a contiguous block of ``max_slots / data`` slot rows
 (their cache, staging buffers and generation buffers) and decodes only
 those; on a ``("data", "model")`` mesh the base weights, the cache's K/V
-heads and the bank's ``B`` columns at the split sites are the rank's
-tensor-parallel pieces (``repro_torch.models.tensor_parallel``), the
-BGMV kernel runs on the local slots and local columns, the greedy token is
+heads (Mamba's state heads and conv channels; MLA's latents stay whole)
+and the bank's ``B`` rows and ``A`` columns at the split sites are the
+rank's tensor-parallel pieces (``repro_torch.models.tensor_parallel``),
+for every family the engine serves; the BGMV kernel runs on the local
+slots at the shard shapes, the greedy token is
 the argmax over every rank's vocabulary columns and sampling draws from
 the gathered logits.  The finished rows' tokens and fault flags are
 all-gathered over ``"data"`` at each retire burst, so every rank completes
@@ -145,8 +147,10 @@ class ServingEngine:
 
     ``device=None`` means CUDA (raises without one); params are moved there
     and the store must live there too.  ``mesh``: a serving mesh (module
-    docstring); ``params`` are whole, and the store must be on the same
-    mesh or on none (the engine then gives it its own)."""
+    docstring); ``params`` are whole — or, with ``split``, already this
+    rank's tensor-parallel pieces (``init_params(..., tp=)``,
+    ``interop.params_from_numpy(..., mesh=)``) — and the store must be on
+    the same mesh or on none (the engine then gives it its own)."""
 
     def __init__(self, cfg: ModelConfig, params: Tree, store: AdapterStore,
                  *, lora_scale: float, max_slots: int = 8,
@@ -156,7 +160,7 @@ class ServingEngine:
                  prefill_flash: bool | None = None,
                  lora_backend: str = "gather",
                  sampling: SamplingConfig | None = None,
-                 sample_seed: int = 0, mesh=None,
+                 sample_seed: int = 0, mesh=None, split: bool = False,
                  telemetry: Telemetry | None = None, device=None):
         bad = {k for k in cfg.pattern if k not in ("attn", "attn_local",
                                                    "mamba")}
@@ -209,7 +213,7 @@ class ServingEngine:
             raise ValueError(f"AdapterStore lives on {store.device}, the "
                              f"engine on {dev}")
         self.cfg = cfg
-        if self._tp is not None:
+        if self._tp is not None and not split:
             # frozen base weights: tensor-parallel pieces, never split over
             # "data" (the slot axis; param_spec_tp)
             params = self._tp.shard_params(params)
@@ -255,7 +259,8 @@ class ServingEngine:
         self.prefill_chunk = prefill_chunk
 
         B = len(self._rows)                     # the slot rows held here
-        self._cache = T.init_cache(cfg, params, B, self.cache_len)
+        self._cache = T.init_cache(cfg, params, B, self.cache_len,
+                                   tp=self._tp)
 
         def zeros(*shape, dtype=torch.int64):
             return torch.zeros(shape, dtype=dtype, device=dev)

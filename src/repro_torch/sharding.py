@@ -24,10 +24,24 @@ and a serving mesh ``("data",)`` or ``("data", "model")``.
   not divide its axis, or the mesh lacks the axis.
 
 :func:`shard_local` gives one rank's contiguous piece of a tensor under a
-spec.  The rules decide only by divisibility; the port's tensor-parallel
-execution (``repro_torch.models.tensor_parallel``) also needs whole
-attention heads on each rank and keeps a weight whole where they do not
-divide.
+spec.  The rules decide only by divisibility and by a weight's name; the
+port's tensor-parallel execution (``repro_torch.models.tensor_parallel``)
+keeps whole heads (attention, MLA, SSM heads) or whole expert columns on
+each rank, keeps a sublayer whole where they do not divide, and places
+these otherwise than the rules:
+
+* Mamba's ``in_proj`` ``[d, z | xs | B | C | dt]`` and its conv channels
+  ``[xs | B | C]``: cut segment by segment (``z``, ``xs``, ``dt`` by
+  heads, the one group's ``B`` / ``C`` whole on every rank), not into
+  contiguous column blocks; ``A_log``, ``D``, ``dt_bias``, ``gate_norm``
+  and ``conv_b`` split by heads, not replicated;
+* the Mamba decode cache: ``h`` ``[n, B, H, P, N]`` over its heads and
+  ``conv`` ``[n, B, W-1, C]`` by the same segment cut, where
+  :func:`cache_spec` splits the trailing dimension (N, or C in contiguous
+  blocks); the attention K/V cache by KV heads, not by ``head_dim``;
+  MLA's ``c_kv`` / ``k_rope`` whole (``wdq`` and ``wkv_a`` stay whole);
+* the enc-dec frontend ``encoder.in_proj`` whole, though its name is
+  Mamba's.
 """
 
 from __future__ import annotations

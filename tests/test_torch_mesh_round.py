@@ -65,6 +65,15 @@ def join_mesh(rank, world, rdv, shape, names):
     return Mesh(shape, names)
 
 
+def leave_mesh():
+    """Leave the process group with the other ranks: a rank whose process
+    exits while a peer's gloo threads still read from it can abort that
+    peer (SIGABRT, "terminate called without an active exception")."""
+    import torch.distributed as dist
+    dist.barrier()
+    dist.destroy_process_group()
+
+
 def corpus(n, sizes):
     from repro_torch import data as TD
     return TD.make_federated_datasets(TD.SyntheticTaskConfig(), n,
@@ -204,6 +213,7 @@ def _rank_2x2(rank, world, rdv, case, out):
         el = tm.evaluate_personalized(generate=True, n=4, vmapped=False)
         res["eval"] = (ev, el, tm.dispatch_count["population_eval"])
     torch.save(res, os.path.join(out, f"rank{rank}.pt"))
+    leave_mesh()
 
 
 @pytest.mark.parametrize("agg,kw", [
@@ -249,6 +259,7 @@ def _rank_1d(rank, world, rdv, cases, out):
             res["eval"] = (ev, ts.evaluate_personalized(generate=True, n=4),
                            [str(w.message) for w in caught])
     torch.save(res, os.path.join(out, f"rank{rank}.pt"))
+    leave_mesh()
 
 
 THREE = dict(n=3, sizes=(24, 30, 24), ranks=(4, 8, 8))
@@ -310,6 +321,7 @@ def _rank_1x2(rank, world, rdv, case, out):
     big = max(t.numel() * t.element_size() for t in whole if t.dim() >= 2)
     torch.save({"calls": calls, "largest": largest, "limit": big,
                 "joined": joined}, os.path.join(out, f"rank{rank}.pt"))
+    leave_mesh()
 
 
 def _leaves(tree):

@@ -21,7 +21,7 @@ import pytest
 torch = pytest.importorskip("torch")
 torch.set_num_threads(1)
 
-from test_torch_mesh_round import join_mesh, spawn  # noqa: E402
+from test_torch_mesh_round import join_mesh, leave_mesh, spawn  # noqa: E402
 
 TENANTS = (4, 8, 16, 8, 4)
 BANK_SLOTS, RANK, SCALE = 2, 16, 2.0
@@ -125,6 +125,7 @@ def _rank_serve(rank, world, rdv, name, tree, adapters, reqs, out):
         odd = str(e)
     torch.save({"runs": runs, "params": shapes, "odd_slots": odd},
                os.path.join(out, f"rank{rank}.pt"))
+    leave_mesh()
 
 
 @pytest.mark.parametrize("name", ["fedbench-tiny", "qwen2-0.5b"])
@@ -206,11 +207,12 @@ def test_mesh_validation(world1):
     with pytest.raises(ValueError, match="round mesh"):
         make_round_engine(cfg, OptimizerConfig(), n_sample=2,
                           mesh=Mesh((1, 1), ("model", "client")), **eng)
-    # a 2-D mesh takes the dense and prefix-VLM stacks only
-    with pytest.raises(NotImplementedError, match="item 1.1"):
-        make_round_engine(get_config("mamba2-130m"), OptimizerConfig(),
-                          n_sample=2, mesh=Mesh((1, 1), ("client", "model")),
-                          **eng)
+    # a 2-D mesh takes every family
+    for name in ("mamba2-130m", "jamba-v0.1-52b", "deepseek-v2-236b",
+                 "llama-3.2-vision-11b", "seamless-m4t-medium"):
+        assert callable(make_round_engine(
+            get_config(name), OptimizerConfig(), n_sample=2,
+            mesh=Mesh((1, 1), ("client", "model")), **eng))
 
     # serving: a "data" axis; the store on the engine's mesh or on none
     tiny = get_reduced_config("fedbench-tiny")
@@ -233,9 +235,9 @@ def test_mesh_validation(world1):
 
 
 def test_client_mesh_takes_every_family(world1):
-    """The 1-D client mesh needs no tensor parallelism, so it runs every
-    family: a round of the reduced mamba2-130m on a one-rank client mesh
-    is the unmeshed round bit for bit; a 2-D mesh raises for it."""
+    """Every family runs on the 1-D client mesh and on a 2-D (client,
+    "model") mesh: a round of the reduced mamba2-130m on a one-rank client
+    mesh, and on a (1, 1) mesh, is the unmeshed round bit for bit."""
     from repro_torch import data as TD
     from repro_torch.configs import get_reduced_config
     from repro_torch.federated import FederatedConfig, FederatedTrainer
@@ -256,13 +258,15 @@ def test_client_mesh_takes_every_family(world1):
         return FederatedTrainer(cfg, fcfg, OptimizerConfig(), clients,
                                 clients, gtest, mesh=mesh, device="cpu")
 
-    tm, ts = trainer(Mesh((1,), ("clients",))), trainer(None)
-    assert tm.run_round() == ts.run_round()
-    for n, e in ts.server.global_lora.items():
-        for m in ("A", "B"):
-            assert torch.equal(tm.server.global_lora[n][m], e[m])
-    with pytest.raises(NotImplementedError, match="item 1.1"):
-        trainer(Mesh((1, 1), ("client", "model")))
+    for mesh in (Mesh((1,), ("clients",)), Mesh((1, 1), ("client",
+                                                           "model"))):
+        tm, ts = trainer(mesh), trainer(None)
+        assert tm.run_round() == ts.run_round()
+        for n, e in ts.server.global_lora.items():
+            for m in ("A", "B"):
+                assert torch.equal(tm.server.global_lora[n][m], e[m])
+                assert torch.equal(tm.stacked_lora[n][m],
+                                   ts.stacked_lora[n][m])
 
 
 def test_mesh_reassignment_and_store_set_mesh(world1):
