@@ -211,10 +211,27 @@ Phases (each raises on failure; the script then exits non-zero):
     49.37 B parameters) in bf16 on a (1, 4) engine, each rank drawing only
     its pieces: peak memory per rank, tokens/s, and f32 decode against
     the same mesh's forward.  A line says which parts ran.
+21. analysis — the dry run's tooling held against the card: the measured
+    bf16 matmul rate (8192^3) and 2 GiB copy rate beside the data-sheet
+    peaks of ``repro_torch.launch.roofline``; the dry-run CLI on
+    qwen2-0.5b (every shape, 16x16 on a fake process group) and the
+    fedbench-100m round, as subprocesses that must exit 0 and leave
+    records; four steps at world size 1 with bf16 weights
+    (``ANALYSIS_STEPS``: a qwen2-0.5b train step with 2 microbatches and
+    remat, a prefill at S 4096, a serve step over a 4096-position cache;
+    ``ANALYSIS_ROUND``: fedbench-100m's ``make_fed_round_step``), each
+    traced at its sizes by the dry run's tracer and run for real: the real
+    ``FlopCounterMode`` count equal to the trace's, the real peak within
+    15 % of the predicted one, the CUDA-event time printed beside the
+    analytic and the traced roofline times; ``fedilora_kernel`` against
+    ``fedilora`` from the same state within atol 1e-5 + rtol 1e-4 with one
+    ``dim_agg`` launch; with 4 cards or more a 2x2 round whose collective
+    counts and bytes equal a fake-process-group trace's, and a 256 MiB
+    NCCL all-reduce's bus bandwidth.
 
 Each path that runs a kernel (ops: ``lora_matmul`` and ``flash_attention``;
 serve, slo and families: BGMV; train, faults, timelines, population,
-checkpoint and vision: ``dim_agg``; the trimmed runs and vision:
+checkpoint, vision and analysis: ``dim_agg``; the trimmed runs and vision:
 ``dim_agg_trimmed``; mesh and mesh_families: all three) is driven
 with the launch counts set to 0 just before it and read just after; a
 kernel that its path never launched fails the run.  It prints a JSON
@@ -239,12 +256,6 @@ import warnings
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 SRC = os.path.join(ROOT, "src")
-
-# data-sheet peaks (NVIDIA): bytes/s of device memory, dense bf16 tensor
-# core, f32 (non-tensor-core) and dense TF32 tensor-core operations/s
-PEAKS = [("H200", 4.8e12, 989e12, 67e12, 495e12),
-         ("H100 PCIe", 2.0e12, 756e12, 51e12, 378e12),
-         ("H100", 3.35e12, 989e12, 67e12, 495e12)]
 
 KERNEL_SHAPES = [(16, 896, 896), (16, 896, 128), (512, 896, 896),
                  (512, 896, 128),
@@ -367,16 +378,6 @@ OFFSET_FLASH = (1, 300, 300, 4, 2, 64, 64)
 F32_ATOL, BF16_RTOL, P_BF16_RTOL = 1e-4, 2.0 ** -7, 2.0 ** -8
 
 
-def peaks_for(name: str):
-    """Memory rate, bf16 peak and the peak that bounds f32 work: the f32
-    CUDA-core peak or a third of the TF32 peak, whichever is larger (the
-    3xTF32 route runs three TF32 products for each f32 one)."""
-    for key, bw, bf16, f32, tf32 in PEAKS:
-        if key in name:
-            return bw, bf16, max(f32, tf32 / 3)
-    raise RuntimeError(f"no data-sheet peaks for {name!r}")
-
-
 def cuda_time_ms(fn, arg_sets, iters: int = 60, warmup: int = 5) -> float:
     """Mean device ms per call over ``iters`` calls cycling through
     ``arg_sets`` (enough distinct weights that each call finds them outside
@@ -414,6 +415,7 @@ def phase_kernels(dev_name: str) -> dict:
     from repro_torch.kernels import grouped_lora_matmul as glm
     from repro_torch.kernels.ref import grouped_lora_matmul_ref
 
+    from repro_torch.launch.roofline import peaks_for
     bw, peak_bf16, peak_f32 = peaks_for(dev_name)
     gen = torch.Generator(device="cuda").manual_seed(0)
     G, r, scale = 8, 64, 0.25
@@ -644,6 +646,7 @@ def phase_dim_agg(dev_name: str) -> dict:
                                               trimmed_dimension_counts)
     from repro_torch.kernels import dim_agg as DK
 
+    from repro_torch.launch.roofline import peaks_for
     bw, _, peak_f32 = peaks_for(dev_name)
     gen = torch.Generator(device="cuda").manual_seed(1)
 
@@ -1151,6 +1154,7 @@ def phase_ops(dev_name: str) -> dict:
     from repro_torch.kernels.ref import lora_matmul_ref
     from repro_torch.models.layers import multihead_attention
 
+    from repro_torch.launch.roofline import peaks_for
     bw, peak_bf16, peak_f32 = peaks_for(dev_name)
     gen = torch.Generator(device="cuda").manual_seed(2)
     scale = 0.7
@@ -3293,6 +3297,7 @@ def _vision_tree_kernels(trainer, sampled, dev_name: str) -> dict:
                                               trimmed_dimension_counts)
     from repro_torch.kernels import dim_agg as DK
 
+    from repro_torch.launch.roofline import peaks_for
     bw, _, peak_f32 = peaks_for(dev_name)
     tree, ranks, p = _cohort_tree(trainer, sampled)
     K, r_g = len(sampled), trainer.lcfg.rank
@@ -4488,6 +4493,480 @@ def phase_mesh_families(dev_name: str) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# analysis: the dry run's tracer and roofline held against the card
+# ---------------------------------------------------------------------------
+
+ANALYSIS_RANK = 32
+# the steps run for real at world size 1 and traced at the same sizes:
+# name -> (arch, kind, batch, seq, microbatches); each peaks above 4 GB
+ANALYSIS_STEPS = {"train": ("qwen2-0.5b", "train", 4, 2048, 2),
+                  "prefill": ("qwen2-0.5b", "prefill", 32, 4096, None),
+                  "serve": ("qwen2-0.5b", "decode", 64, 4096, None)}
+# fedbench-100m's round: clients, local steps, batch, sequence, ranks
+ANALYSIS_ROUND = ("fedbench-100m", 4, 10, 8, 1024, (8, 16, 24, 32))
+# the 2x2 round of the four-card part (clients = the "data" axis)
+ANALYSIS_MESH_ROUND = ("fedbench-100m", 2, 4, 8, 256)
+ANALYSIS_PEAK_TOL = 0.15
+ANALYSIS_TIMEOUT_S = 300
+ANALYSIS_MATMUL_N = 8192
+ANALYSIS_COPY_BYTES = 2 << 30
+ANALYSIS_ALLREDUCE_BYTES = 256 << 20
+
+
+def _bf16_config(arch: str):
+    from repro_torch.configs import get_config
+    return dataclasses.replace(get_config(arch), dtype="bfloat16")
+
+
+def _rand_batch(cfg, lead: tuple, seq: int, gen, dev, labels: bool = True):
+    """A batch ``{tokens, [labels, loss_mask,] [image, image_mask]}`` of
+    leading shape ``lead``, drawn from ``gen`` on ``dev``."""
+    import torch
+
+    from repro_torch.models.transformer import torch_dtype
+    ints = lambda: torch.randint(0, cfg.vocab_size, lead + (seq,),
+                                 generator=gen, device=dev)
+    b = {"tokens": ints()}
+    if labels:
+        b["labels"] = ints()
+        b["loss_mask"] = torch.ones(lead + (seq,), device=dev)
+    if cfg.family == "vlm":
+        b["image"] = torch.randn(lead + (cfg.num_vision_tokens,
+                                         cfg.vision_dim), generator=gen,
+                                 device=dev).to(torch_dtype(cfg.dtype))
+        if labels:
+            b["image_mask"] = (torch.rand(lead, generator=gen, device=dev)
+                               < 0.6).float()
+    return b
+
+
+def analysis_inputs(name: str, dev) -> tuple:
+    """``(step, args, cfg, analytic InputShape or None)`` of one of the
+    analysis phase's steps on ``dev``, bf16 weights from a seed (the
+    adapters' ``B`` drawn too, so every product is live)."""
+    import torch
+
+    from repro_torch.core.lora import LoRAConfig, init_lora_params
+    from repro_torch.launch import steps as S
+    from repro_torch.launch.fedround import make_fed_round_step
+    from repro_torch.launch.specs import InputShape
+    from repro_torch.models import transformer as T
+    from repro_torch.optim import OptimizerConfig, adamw_init
+
+    gdev = "cpu" if torch.device(dev).type == "meta" else dev  # sizing
+    gen = torch.Generator(device=gdev).manual_seed(7)
+    seeded = lambda seed: torch.Generator(device=gdev).manual_seed(seed)
+    scale = 16.0 / ANALYSIS_RANK
+    if name == "round":
+        arch, K, steps, B, seq, ranks = ANALYSIS_ROUND
+        cfg = _bf16_config(arch)
+        loras = [init_lora_params(T.lora_specs(cfg),
+                                  LoRAConfig(rank=ANALYSIS_RANK),
+                                  generator=gen, client_rank=r, device=dev)
+                 for r in ranks]
+        stacked = {n: {m: torch.stack([lo[n][m] for lo in loras])
+                       for m in ("A", "B")} for n in loras[0]}
+        args = (T.init_params(cfg, generator=seeded(42), device=dev),
+                stacked, loras[-1],
+                torch.tensor(ranks, dtype=torch.int32, device=dev),
+                torch.full((K,), 1.0 / K, device=dev),
+                _rand_batch(cfg, (K, steps, B), seq, gen, dev))
+        return {agg: make_fed_round_step(
+            cfg, OptimizerConfig(peak_lr=1e-3, total_steps=100),
+            lora_scale=scale, r_g=ANALYSIS_RANK, aggregator=agg)
+            for agg in ("fedilora", "fedilora_kernel")}, args, cfg, None
+    arch, kind, B, seq, micro = ANALYSIS_STEPS[name]
+    cfg = _bf16_config(arch)
+    params = T.init_params(cfg, generator=seeded(0), device=dev)
+    lora = init_lora_params(T.lora_specs(cfg), LoRAConfig(rank=ANALYSIS_RANK),
+                            generator=gen, device=dev)
+    for e in lora.values():
+        e["B"].normal_(0.0, 0.02, generator=gen)
+    shape = InputShape(name, seq, B, kind)
+    if kind == "train":
+        step = S.make_train_step(cfg, OptimizerConfig(peak_lr=1e-4),
+                                 lora_scale=scale, num_microbatches=micro)
+        args = (params, lora, adamw_init(lora),
+                _rand_batch(cfg, (B,), seq, gen, dev))
+    elif kind == "prefill":
+        step = S.make_prefill_step(cfg, lora_scale=scale)
+        args = (params, lora, _rand_batch(cfg, (B,), seq, gen, dev,
+                                          labels=False))
+    else:
+        serve = S.make_serve_step(cfg, lora_scale=scale)
+        step = lambda p, lo, c, t: serve(p, lo, c, t, seq - 1)
+        args = (params, lora, T.init_cache(cfg, params, B, seq),
+                torch.randint(0, cfg.vocab_size, (B,), generator=gen,
+                              device=dev))
+    return step, args, cfg, shape
+
+
+def analysis_trace(name: str, step, args) -> dict:
+    """The dry run's tracer over ``step`` at ``args``' sizes, on meta
+    copies (CPU): FLOPs, bytes, the predicted peak and the traced
+    roofline terms."""
+    from repro_torch.launch import dryrun as D
+    from repro_torch.launch import roofline as RL
+    from repro_torch.launch.specs import tree_bytes
+    meta = D.meta_copy(args)
+    t = D.trace(step, *meta)
+    arg_bytes = tree_bytes(args)
+    return {"flops": t.flops, "bytes_accessed": t.bytes_accessed,
+            "args_bytes": arg_bytes, "temp_bytes": t.peak,
+            "peak_bytes": arg_bytes + t.peak, "ops": t.ops,
+            "trace_s": t.seconds,
+            "roofline": RL.roofline({"flops": t.flops,
+                                     "bytes accessed": t.bytes_accessed},
+                                    {"total_bytes": 0}).as_dict()}
+
+
+def _analytic_one_card(cfg, shape, micro) -> dict:
+    from repro_torch.launch.analytic import MeshInfo, analytic_terms
+    at = analytic_terms(cfg, shape, MeshInfo(chips=1, dp=1, tp=1, fsdp=1),
+                        rank=ANALYSIS_RANK, num_micro=micro)
+    r = at.roofline()
+    return {k: r[k] for k in ("compute_s", "memory_s", "collective_s",
+                              "dominant", "flops_per_device",
+                              "hbm_bytes_per_device")}
+
+
+def _real_run(step, args) -> dict:
+    """The step on the card: its peak above the arguments (after a
+    warm-up call), its CUDA-event time and ``FlopCounterMode``'s FLOPs."""
+    import gc
+
+    import torch
+    from torch.utils.flop_counter import FlopCounterMode
+    step(*args)                                   # warm-up (cuBLAS, caches)
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    out = step(*args)
+    torch.cuda.synchronize()
+    above = torch.cuda.max_memory_allocated() - base
+    del out
+    e0 = torch.cuda.Event(enable_timing=True)
+    e1 = torch.cuda.Event(enable_timing=True)
+    e0.record()
+    out = step(*args)
+    e1.record()
+    torch.cuda.synchronize()
+    ms = e0.elapsed_time(e1)
+    del out
+    with FlopCounterMode(display=False) as fc:
+        out = step(*args)
+    torch.cuda.synchronize()
+    del out
+    return {"temp_bytes": above, "ms": ms, "flops": fc.get_total_flops()}
+
+
+def _measured_rates(dev_name: str) -> dict:
+    """The card's achieved bf16 matmul rate at 8192^3 and its 2 GiB
+    device-to-device copy rate, beside the data-sheet peaks."""
+    import torch
+
+    from repro_torch.launch import roofline as RL
+    n = ANALYSIS_MATMUL_N
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    a = torch.randn((n, n), device="cuda", generator=gen).bfloat16()
+    b = torch.randn((n, n), device="cuda", generator=gen).bfloat16()
+    mm_ms = cuda_time_ms(torch.matmul, [(a, b)], iters=20, warmup=3)
+    del a, b
+    src = torch.empty(ANALYSIS_COPY_BYTES, dtype=torch.uint8, device="cuda")
+    dst = torch.empty_like(src)
+    cp_ms = cuda_time_ms(lambda x, y: y.copy_(x), [(src, dst)], iters=20,
+                         warmup=3)
+    del src, dst
+    torch.cuda.empty_cache()
+    bw, bf16, _ = RL.peaks_for(dev_name)
+    tflops = 2 * n ** 3 / (mm_ms * 1e-3) / 1e12
+    gbs = 2 * ANALYSIS_COPY_BYTES / (cp_ms * 1e-3) / 1e9   # read + write
+    return {"matmul_bf16_ms": mm_ms, "matmul_bf16_tflops": tflops,
+            "copy_ms": cp_ms, "copy_gb_s": gbs,
+            "datasheet_bf16_tflops": bf16 / 1e12,
+            "datasheet_hbm_gb_s": bw / 1e9,
+            "matmul_share": tflops / (bf16 / 1e12),
+            "copy_share": gbs / (bw / 1e9)}
+
+
+def _dryrun_cli(out_dir: str) -> list:
+    """Start the dry-run CLI (qwen2-0.5b, every shape, 16x16; and the
+    fedbench-100m round) as subprocesses on the host's cores."""
+    env = dict(os.environ, PYTHONPATH=SRC)
+    base = [sys.executable, "-m", "repro_torch.launch.dryrun", "--mesh",
+            "single", "--out", out_dir]
+    return [subprocess.Popen(base + a, stdout=subprocess.PIPE,
+                             stderr=subprocess.STDOUT, text=True, env=env,
+                             cwd=ROOT)
+            for a in (["--arch", "qwen2-0.5b", "--shape", "all", "--jobs",
+                       "3"], ["--fedround", "--arch", "fedbench-100m"])]
+
+
+def _dryrun_records(procs, out_dir: str) -> dict:
+    """Wait for the CLI runs; each must exit 0 and leave its records."""
+    recs = {}
+    for p in procs:
+        out, _ = p.communicate(timeout=ANALYSIS_TIMEOUT_S)
+        if p.returncode != 0:
+            raise AssertionError(f"dry run {p.args[3:]} exited "
+                                 f"{p.returncode}:\n{out[-3000:]}")
+    names = [f"qwen2-0.5b__{s}__16x16" for s in
+             ("train_4k", "prefill_32k", "decode_32k", "long_500k")] + [
+        "fedbench-100m__fedround__16x16"]
+    for n in names:
+        with open(os.path.join(out_dir, n + ".json")) as f:
+            rec = json.load(f)
+        if "error" in rec:
+            raise AssertionError(f"dry run {n}: {rec['error']}")
+        recs[n] = rec
+    if "skipped" not in recs["qwen2-0.5b__long_500k__16x16"]:
+        raise AssertionError("qwen2-0.5b long_500k was not skipped")
+    return recs
+
+
+def _fake_round_trace(out_path: str) -> None:
+    """The four-card round traced on a fake 4-rank process group (run in
+    a subprocess of its own): rank 0's collective schema to ``out_path``."""
+    import torch.distributed as dist
+
+    from repro_torch.launch import dryrun as D
+    from repro_torch.launch.mesh import make_debug_mesh
+    arch, K, steps, B, seq = ANALYSIS_MESH_ROUND
+    D.fake_process_group(4)
+    rec = D.dryrun_fedround(arch, multi_pod=False, mesh=make_debug_mesh(2, 2),
+                            cfg=_bf16_config(arch), rank=ANALYSIS_RANK,
+                            local_steps=steps, client_batch=B, seq=seq)
+    dist.destroy_process_group()
+    with open(out_path, "w") as f:
+        json.dump(rec, f)
+
+
+def _analysis_rank(rank: int, world: int, rdv: str, out_path: str,
+                   parts: tuple) -> None:
+    """One rank of the analysis phase's four-card part: the 2x2 fed round
+    step on NCCL (its collectives counted on the mesh) and the bus
+    bandwidth of a 256 MiB all-reduce over the four ranks."""
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.core.lora import LoRAConfig, init_lora_params
+    from repro_torch.launch import roofline as RL
+    from repro_torch.launch.fedround import make_fed_round_step
+    from repro_torch.launch.mesh import Mesh, init_distributed
+    from repro_torch.models import transformer as T
+    from repro_torch.models.tensor_parallel import TensorParallel
+    from repro_torch.optim import OptimizerConfig
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dev = init_distributed(init_method=f"file://{rdv}", world_size=world,
+                           rank=rank)
+    res = {}
+    try:
+        arch, K, steps, B, seq = ANALYSIS_MESH_ROUND
+        cfg = _bf16_config(arch)
+        mesh = Mesh((2, 2), ("data", "model"))
+        gen = torch.Generator(device=dev).manual_seed(11)
+        lora = init_lora_params(T.lora_specs(cfg),
+                                LoRAConfig(rank=ANALYSIS_RANK), generator=gen)
+        stacked = {n: {m: torch.stack([e[m]] * K) for m in ("A", "B")}
+                   for n, e in lora.items()}
+        step = make_fed_round_step(
+            cfg, OptimizerConfig(peak_lr=1e-3, total_steps=100),
+            lora_scale=16.0 / ANALYSIS_RANK, r_g=ANALYSIS_RANK,
+            aggregator="fedilora_kernel", mesh=mesh)
+        params = T.init_params(cfg, seed=42, device=dev,
+                               tp=TensorParallel(cfg, mesh))
+        batches = _rand_batch(cfg, (K, steps, B), seq, gen, dev)
+        args = (params, stacked, lora,
+                torch.full((K,), ANALYSIS_RANK, dtype=torch.int32,
+                           device=dev),
+                torch.full((K,), 1.0 / K, device=dev), batches)
+        mesh.reset_collectives()
+        t0 = time.perf_counter()
+        g, _, loss = step(*args)
+        torch.cuda.synchronize()
+        res["round_s"] = time.perf_counter() - t0
+        res["loss"] = float(loss)
+        res["collectives"] = RL.collective_bytes(mesh)
+        # NCCL all-reduce bus bandwidth: 2 (n - 1) / n of the bytes a rank
+        # sends and receives, over the time
+        x = torch.ones(ANALYSIS_ALLREDUCE_BYTES // 4, device=dev)
+        for _ in range(3):
+            dist.all_reduce(x)
+        torch.cuda.synchronize()
+        e0 = torch.cuda.Event(enable_timing=True)
+        e1 = torch.cuda.Event(enable_timing=True)
+        e0.record()
+        for _ in range(10):
+            dist.all_reduce(x)
+        e1.record()
+        torch.cuda.synchronize()
+        ms = e0.elapsed_time(e1) / 10
+        res["allreduce_ms"] = ms
+        res["allreduce_busbw_gb_s"] = (2 * (world - 1) / world
+                                       * ANALYSIS_ALLREDUCE_BYTES
+                                       / (ms * 1e-3) / 1e9)
+        if rank == 0:
+            with open(out_path, "w") as f:
+                json.dump(res, f, default=float)
+    finally:
+        dist.destroy_process_group()
+
+
+def analysis_four() -> dict:
+    """The analysis phase's four-card part: the 2x2 round on NCCL, its
+    collective counts and bytes held equal to a fake-process-group trace
+    of the same round (traced in a subprocess of its own), and the bus
+    bandwidth of a 256 MiB all-reduce."""
+    fake_path = os.path.join(ROOT, "build", "analysis_fake_round.json")
+    code = ("import sys; sys.path.insert(0, %r); sys.path.insert(0, %r);"
+            " import chip_smoke; chip_smoke._fake_round_trace(%r)"
+            % (SRC, ROOT, fake_path))
+    subprocess.run([sys.executable, "-c", code], check=True, cwd=ROOT,
+                   timeout=ANALYSIS_TIMEOUT_S)
+    with open(fake_path) as f:
+        fake = json.load(f)
+    four = _spawn_mesh(4, ("round",), target=_analysis_rank,
+                       timeout=ANALYSIS_TIMEOUT_S)
+    if four["collectives"] != fake["collectives"]:
+        raise AssertionError(f"analysis 2x2 round: collectives "
+                             f"{four['collectives']} differ from the "
+                             f"fake trace's {fake['collectives']}")
+    print(f"analysis 2x2 round: collectives equal to the fake trace's "
+          f"({four['collectives']['counts']}, "
+          f"{four['collectives']['total_bytes']} bytes), round "
+          f"{four['round_s']:.2f} s; NCCL all-reduce of 256 MiB "
+          f"{four['allreduce_ms']:.3f} ms, bus bandwidth "
+          f"{four['allreduce_busbw_gb_s']:.1f} GB/s", flush=True)
+    return {"real": four, "fake": fake["collectives"]}
+
+
+def phase_analysis(dev_name: str) -> dict:
+    """The analysis tooling held against the card: the card's measured
+    matmul and copy rates beside its data-sheet peaks; the dry-run CLI on
+    qwen2-0.5b (every shape, 16x16) and the fedbench-100m round, as
+    subprocesses; four steps at world size 1 with bf16 weights, each traced
+    with the dry run's tracer at the same sizes and run for real — the
+    real ``FlopCounterMode`` count equal to the trace's, the real peak
+    (arguments + ``max_memory_allocated`` above them) within 15 % of the
+    predicted one, the CUDA-event time printed beside the analytic and the
+    traced roofline times; ``make_fed_round_step(aggregator=
+    "fedilora_kernel")`` against ``"fedilora"`` from the same state, one
+    ``dim_agg`` launch a step; with 4 cards or more a 2x2 round whose
+    collectives equal a fake-process-group trace's, and an all-reduce's
+    bus bandwidth."""
+    import gc
+
+    import torch
+
+    from repro_torch.kernels import dim_agg as DK
+
+    out_dir = os.path.join(ROOT, "build", "analysis_dryrun")
+    os.makedirs(out_dir, exist_ok=True)
+    procs = _dryrun_cli(out_dir)
+    out = {"rates": _measured_rates(dev_name)}
+    r = out["rates"]
+    print(f"analysis: measured bf16 matmul {r['matmul_bf16_tflops']:.1f} "
+          f"TFLOP/s ({100 * r['matmul_share']:.1f} % of the data sheet's "
+          f"{r['datasheet_bf16_tflops']:.0f}), 2 GiB copy "
+          f"{r['copy_gb_s']:.0f} GB/s ({100 * r['copy_share']:.1f} % of "
+          f"{r['datasheet_hbm_gb_s']:.0f}) on {dev_name}", flush=True)
+    steps = {}
+    for name in list(ANALYSIS_STEPS) + ["round"]:
+        gc.collect()
+        torch.cuda.empty_cache()
+        step, args, cfg, shape = analysis_inputs(name, "cuda")
+        if name == "round":
+            kernel_step, step = step["fedilora_kernel"], step["fedilora"]
+        traced = analysis_trace(name, step, args)
+        real = _real_run(step, args)
+        real_peak = traced["args_bytes"] + real["temp_bytes"]
+        err = real_peak / traced["peak_bytes"] - 1
+        rec = {"traced": traced, "real": real, "real_peak_bytes": real_peak,
+               "peak_err": err,
+               "analytic": (_analytic_one_card(cfg, shape,
+                                               ANALYSIS_STEPS[name][4])
+                            if shape is not None else None)}
+        t_bound = max(traced["roofline"][k] for k in
+                      ("compute_s", "memory_s", "collective_s"))
+        rec["time_over_traced_bound"] = real["ms"] * 1e-3 / t_bound
+        an = rec["analytic"]
+        print(f"analysis {name}: FLOPs real {real['flops']:.6e} traced "
+              f"{traced['flops']:.6e}; peak real {real_peak / 2**30:.3f} GiB "
+              f"predicted {traced['peak_bytes'] / 2**30:.3f} GiB "
+              f"({100 * err:+.2f} %); device {real['ms']:.2f} ms, traced "
+              f"roofline compute {traced['roofline']['compute_s'] * 1e3:.2f}"
+              f" / memory {traced['roofline']['memory_s'] * 1e3:.2f} ms"
+              + (f", analytic compute {an['compute_s'] * 1e3:.2f} / memory "
+                 f"{an['memory_s'] * 1e3:.2f} ms" if an else "")
+              + f"; trace {traced['trace_s']:.1f} s", flush=True)
+        if real["flops"] != traced["flops"]:
+            raise AssertionError(f"analysis {name}: the real run's FLOPs "
+                                 f"{real['flops']} differ from the trace's "
+                                 f"{traced['flops']}")
+        if abs(err) > ANALYSIS_PEAK_TOL:
+            raise AssertionError(f"analysis {name}: real peak {real_peak} "
+                                 f"is {100 * err:+.1f} % from the predicted "
+                                 f"{traced['peak_bytes']}")
+        if traced["peak_bytes"] <= 4e9:
+            raise AssertionError(f"analysis {name}: predicted peak "
+                                 f"{traced['peak_bytes']} is not above 4 GB")
+        if name == "round":
+            g0, c0, l0 = step(*args)
+            DK.reset_launches()
+            g1, c1, l1 = kernel_step(*args)
+            torch.cuda.synchronize()
+            launches = DK.launches["dim_agg"]
+            err_k = 0.0
+            for n in g0:
+                for m in ("A", "B"):
+                    d = (g1[n][m] - g0[n][m]).abs()
+                    if not bool((d <= 1e-5 + 1e-4 * g0[n][m].abs()).all()):
+                        raise AssertionError(
+                            f"analysis round: fedilora_kernel's {n}.{m} "
+                            f"differs from fedilora's by {d.max().item():.3e}"
+                            ", beyond atol 1e-5 + rtol 1e-4")
+                    err_k = max(err_k, d.max().item())
+            if launches != 1:
+                raise AssertionError(f"analysis round: {launches} dim_agg "
+                                     "launches in one fedilora_kernel step")
+            if float(l0) != float(l1):
+                raise AssertionError("analysis round: the clients' losses "
+                                     "differ between the two aggregators")
+            rec["kernel"] = {"launches": launches, "max_abs_err": err_k}
+            print(f"analysis round: fedilora_kernel held against fedilora, "
+                  f"max err {err_k:.3e}, dim_agg launches {launches}",
+                  flush=True)
+        steps[name] = rec
+        del step, args
+    out["steps"] = steps
+    out["launches"] = {"dim_agg": steps["round"]["kernel"]["launches"]}
+    t0 = time.perf_counter()
+    out["dryrun"] = _dryrun_records(procs, out_dir)
+    out["dryrun_wait_s"] = time.perf_counter() - t0
+    for n, rec in out["dryrun"].items():
+        if "skipped" in rec:
+            print(f"analysis dry run {n}: skipped", flush=True)
+            continue
+        rt = rec["roofline_traced"]
+        print(f"analysis dry run {n}: trace {rec['trace_s']:.1f} s, traced "
+              f"-> {rt['dominant']}, analytic -> "
+              f"{rec.get('roofline', {}).get('dominant')}, peak "
+              f"{rec['memory_analysis']['peak_bytes'] / 2**30:.2f} GiB, "
+              f"fits {rec['memory_analysis']['fits']}", flush=True)
+    n_dev = torch.cuda.device_count()
+    out["devices"] = n_dev
+    if n_dev >= 4:
+        out["four"] = analysis_four()
+    else:
+        print(f"analysis: the four-card part did not run ({n_dev} "
+              f"device{'s' if n_dev != 1 else ''}; it needs 4)", flush=True)
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -4549,6 +5028,7 @@ def main() -> int:
     vision = timed("vision", phase_vision, dev_name)
     meshed = timed("mesh", phase_mesh, dev_name)
     meshed_families = timed("mesh_families", phase_mesh_families, dev_name)
+    analysis = timed("analysis", phase_analysis, dev_name)
     print("phase wall s: " + ", ".join(f"{k} {v:.1f}"
                                        for k, v in phase_s.items()),
           flush=True)
@@ -4631,7 +5111,8 @@ def main() -> int:
                     "checkpoint": ckpt["launches"]["dim_agg"],
                     "vision": vision["launches"]["dim_agg"],
                     "mesh": mesh_launches["dim_agg"],
-                    "mesh_families": fam_launches["dim_agg"]},
+                    "mesh_families": fam_launches["dim_agg"],
+                    "analysis": analysis["launches"]["dim_agg"]},
         "dim_agg_trimmed": {
             "train_agreement": train_agree["fedilora_trimmed_kernel"][
                 "launches"]["dim_agg_trimmed"],
@@ -4734,7 +5215,8 @@ def main() -> int:
                    "population": population, "flora": flora,
                    "checkpoint": ckpt, "eval_ref": eval_ref, "cli": cli,
                    "families": families, "vision": vision,
-                   "mesh": meshed, "mesh_families": meshed_families},
+                   "mesh": meshed, "mesh_families": meshed_families,
+                   "analysis": analysis},
                   f, indent=1, default=float)
     print(json.dumps({"kernels": records}))
     print(smi)

@@ -1,6 +1,7 @@
 """The fused federated round and the two halves of the buffered-async
 round (port of ``repro/launch/fedround.py``: ``_make_local_train``, the
-cohort's self-pruning and editing, ``make_round_engine``,
+cohort's self-pruning and editing, ``make_fed_round_step`` (the dry run's
+round over already gathered inputs), ``make_round_engine``,
 ``make_client_update_step`` and ``make_buffer_merge_step``).
 
 One call of the returned ``round_step`` is one communication round over
@@ -357,6 +358,95 @@ def _scatter(stacked_lora, ranks, idx, lora1, ranks_s, kept=None,
     ranks.index_copy_(0, idx, ranks_s.to(ranks.dtype))
 
 
+def make_fed_round_step(cfg: ModelConfig, opt_cfg: OptimizerConfig, *,
+                        lora_scale: float, r_g: int,
+                        edit: EditConfig | None = None,
+                        aggregator: str = "fedilora",
+                        hetlora_beta: float = 1.0, mesh=None) -> Callable:
+    """One round over already sampled, already gathered inputs (the
+    reference's single-program round of its ``--fedround`` dry run)::
+
+        round_step(base_params, stacked_lora[K,...], prev_global,
+                   ranks[K] int32, p[K] f32,
+                   batches {key: [K, steps, B, ...]})
+            -> (global_new, clients[K,...], mean last-step loss)
+
+    Client ``k`` trains from its row of ``stacked_lora`` on its rows of
+    ``batches`` (:func:`_make_local_train`), is edited against
+    ``prev_global`` when ``edit`` is on (:func:`_cohort_edit`), and the
+    cohort aggregates through the registry (``AG.aggregate``, weights
+    ``p``; ``fedilora_kernel`` is one ``dim_agg`` launch).  FLoRA folds
+    dense deltas into the base weights and is refused, as the reference
+    refuses it; use :func:`make_round_engine`.
+
+    ``mesh``: the clients split over the mesh's batch axes
+    (``repro_torch.sharding.batch_axes``: ``"data"``, or ``("pod",
+    "data")`` flattened), each rank training its contiguous block of rows
+    and the rows all-gathered (:func:`_meshed_phases`), and local training
+    runs tensor-parallel over ``"model"`` when the mesh has that axis
+    (``base_params`` are then the rank's pieces).  K must divide over the
+    batch axes.  Every rank returns the same outputs."""
+    edit = edit or EditConfig()
+    if aggregator == "flora":
+        raise ValueError("flora updates base weights; use make_round_engine")
+    if aggregator not in AG.AGGREGATORS:
+        raise ValueError(f"unknown aggregator {aggregator!r}; have "
+                         f"{sorted(AG.AGGREGATORS)}")
+    plan = None
+    if mesh is not None:
+        from repro_torch.sharding import batch_axes
+        axes = batch_axes(mesh)
+        if not axes:
+            raise ValueError(f"mesh {mesh.axis_names} has no batch axis "
+                             "to split the clients over")
+        tp = None
+        if "model" in mesh.axis_names:
+            from repro_torch.models.tensor_parallel import TensorParallel
+            tp = TensorParallel(cfg, mesh)
+        plan = _RoundMesh(mesh, axes if len(axes) > 1 else axes[0], tp,
+                          None)
+    local_train = _make_local_train(cfg, opt_cfg, lora_scale=lora_scale,
+                                    r_g=r_g, tp=plan.tp if plan else None)
+
+    def client_phases(base_params, _global, prev_global, ranks_s, batches,
+                      lora0):
+        loras, losses = [], []
+        for i in range(ranks_s.shape[0]):
+            lo, ls = local_train(base_params,
+                                 {n: {m: e[m][i] for m in ("A", "B")}
+                                  for n, e in lora0.items()}, ranks_s[i],
+                                 {k: v[i] for k, v in batches.items()})
+            loras.append(lo)
+            losses.append(ls)
+        if edit.enabled:
+            loras, _ = _cohort_edit(loras, ranks_s, prev_global, edit, r_g)
+        return stack_trees(loras), ranks_s, {
+            "last_loss": torch.stack(losses)[:, -1]}
+
+    @torch.no_grad()
+    def round_step(base_params, stacked_lora, prev_global, ranks, p,
+                   batches):
+        if plan is None:
+            lora1, _, met = client_phases(base_params, None, prev_global,
+                                          ranks, batches, stacked_lora)
+        else:
+            K, n = ranks.shape[0], plan.mesh.shape[plan.client_axis]
+            if K % n:
+                raise ValueError(f"{K} clients do not divide over the "
+                                 f"mesh's {plan.client_axis!r} axes ({n})")
+            lora1, _, met = _meshed_phases(
+                client_phases, plan._replace(n_pad=K))(
+                    base_params, None, prev_global, ranks,
+                    lambda rows: {k: v[rows] for k, v in batches.items()},
+                    stacked_lora)
+        global_new, _ = AG.aggregate(aggregator, lora1, ranks, p,
+                                     hetlora_beta=hetlora_beta,
+                                     lora_scale=lora_scale)
+        return global_new, lora1, met["last_loss"].mean()
+
+    return round_step
+
+
 def make_round_engine(cfg: ModelConfig, opt_cfg: OptimizerConfig, *,
                       lora_scale: float, r_g: int,
                       edit: EditConfig | None = None,
@@ -643,4 +733,5 @@ def apply_weight_deltas(params, deltas: dict, tp=None):
 
 
 __all__ = ["apply_weight_deltas", "cohort_pad", "make_buffer_merge_step",
-           "make_client_update_step", "make_round_engine", "stack_trees"]
+           "make_client_update_step", "make_fed_round_step",
+           "make_round_engine", "stack_trees"]

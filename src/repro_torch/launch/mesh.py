@@ -11,6 +11,11 @@ passes ``device="cpu"``.  A mesh's axis groups come from
 axis names, and a mesh spans every rank of the process group, row-major
 (the last axis varies fastest).
 
+An axis argument is an axis name or a tuple of names, e.g. ``("pod",
+"data")``: the tuple is the flattened axis, row-major in the tuple's order
+(its first name outermost), so the 2×16×16 mesh's batch axes form one
+32-rank group.
+
 Every collective goes through a :class:`Mesh` method, which counts its
 calls, its operand bytes and its largest operand by ``(op, axis)`` in
 ``mesh.collectives``, ``mesh.collective_bytes`` and
@@ -23,6 +28,7 @@ without a mesh never reaches this module.
 from __future__ import annotations
 
 import collections
+import itertools
 import math
 
 import torch
@@ -100,13 +106,32 @@ class _SumOverAxis(torch.autograd.Function):
             None, None
 
 
+def _axis_key(axis):
+    """An axis argument as the counters and the groups key it: a name, or
+    a tuple of two or more names (a one-name tuple is the name)."""
+    if isinstance(axis, tuple):
+        return axis[0] if len(axis) == 1 else axis
+    return axis
+
+
+class _Shape(dict):
+    """``{axis: size}`` that also answers a tuple of axes with the size of
+    the flattened axis."""
+
+    def __missing__(self, key):
+        if isinstance(key, tuple):
+            return math.prod(self[a] for a in key)
+        raise KeyError(key)
+
+
 class Mesh:
     """A named device mesh over the process group.
 
-    ``shape``: ``{axis: size}`` in axis order; ``axis_names``; ``device``:
-    this rank's device.  ``group(axis)`` is the process group of the ranks
-    that differ from this one only along ``axis``, and ``coord(axis)``
-    this rank's index along it."""
+    ``shape``: ``{axis: size}`` in axis order (a tuple of axes also
+    answers, with their product); ``axis_names``; ``device``: this rank's
+    device.  ``group(axis)`` is the process group of the ranks that differ
+    from this one only along ``axis`` (a name or a tuple of names), and
+    ``coord(axis)`` this rank's index along it."""
 
     def __init__(self, shape: tuple, axis_names: tuple):
         if len(shape) != len(axis_names):
@@ -129,7 +154,7 @@ class Mesh:
         self.axis_names = tuple(axis_names)
         self._groups = {a: self.device_mesh.get_group(a)
                         for a in self.axis_names}
-        self.shape = dict(zip(self.axis_names, (int(s) for s in shape)))
+        self.shape = _Shape(zip(self.axis_names, (int(s) for s in shape)))
         self.collectives: collections.Counter = collections.Counter()
         self.collective_bytes: collections.Counter = collections.Counter()
         self.collective_largest: dict = {}
@@ -137,26 +162,59 @@ class Mesh:
     def __repr__(self) -> str:
         return f"Mesh({self.shape}, device={self.device})"
 
-    def group(self, axis: str):
+    def group(self, axis):
+        axis = _axis_key(axis)
+        if axis not in self._groups:
+            self._groups[axis] = self._flat_group(axis)
         return self._groups[axis]
 
-    def coord(self, axis: str) -> int:
-        return self.device_mesh.get_local_rank(axis)
+    def _flat_group(self, axes: tuple):
+        """The group of a tuple of axes, made the first time it is asked
+        for (every rank asks at the same point of the SPMD program): one
+        group for each coordinate on the other axes, its ranks in
+        row-major order over ``axes``."""
+        if len(set(axes)) != len(axes) or any(
+                a not in self.shape for a in axes):
+            raise ValueError(f"axes {axes} are not distinct axes of "
+                             f"{self.axis_names}")
+        sizes = [self.shape[a] for a in self.axis_names]
+        others = [a for a in self.axis_names if a not in axes]
+        groups = {}
+        for coords in itertools.product(*(range(n) for n in sizes)):
+            at = dict(zip(self.axis_names, coords))
+            rank = 0
+            for a, n in zip(self.axis_names, sizes):
+                rank = rank * n + at[a]
+            key = tuple(at[a] for a in others)
+            groups.setdefault(key, []).append(
+                (tuple(at[a] for a in axes), rank))
+        ranks = [[r for _, r in sorted(g)] for _, g in sorted(groups.items())]
+        group, _ = dist.new_subgroups_by_enumeration(ranks)
+        return group
+
+    def coord(self, axis) -> int:
+        axis = _axis_key(axis)
+        if not isinstance(axis, tuple):
+            return self.device_mesh.get_local_rank(axis)
+        c = 0
+        for a in axis:
+            c = c * self.shape[a] + self.device_mesh.get_local_rank(a)
+        return c
 
     def reset_collectives(self) -> None:
         self.collectives.clear()
         self.collective_bytes.clear()
         self.collective_largest.clear()
 
-    def _count(self, op: str, axis: str, t: torch.Tensor) -> None:
-        key, nbytes = (op, axis), t.numel() * t.element_size()
+    def _count(self, op: str, axis, t: torch.Tensor) -> None:
+        key, nbytes = (op, _axis_key(axis)), t.numel() * t.element_size()
         self.collectives[key] += 1
         self.collective_bytes[key] += nbytes
         self.collective_largest[key] = max(self.collective_largest.get(
             key, 0), nbytes)
 
     # --------------------------------------------------------- collectives
-    def all_reduce(self, t: torch.Tensor, axis: str,
+    def all_reduce(self, t: torch.Tensor, axis,
                    op: str = "sum") -> torch.Tensor:
         """Reduce ``t`` in place over ``axis`` (``op``: sum or max);
         returns ``t``."""
@@ -166,7 +224,7 @@ class Mesh:
                         group=self.group(axis))
         return t
 
-    def all_gather(self, t: torch.Tensor, axis: str,
+    def all_gather(self, t: torch.Tensor, axis,
                    dim: int = 0) -> torch.Tensor:
         """Every rank's ``t`` along ``axis``, concatenated on ``dim`` in
         coordinate order."""

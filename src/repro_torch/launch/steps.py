@@ -1,5 +1,5 @@
 """Step functions (port of ``repro/launch/steps.py``): the adapter train
-and eval steps, the single-adapter serve step, KV-cached greedy caption
+and eval steps, the prefill step, the single-adapter serve step, KV-cached greedy caption
 generation, the population evaluation over stacked client adapters, and
 the serving engine's multi-adapter decode and chunked prefill.
 
@@ -33,16 +33,18 @@ from repro_torch.optim import OptimizerConfig, make_optimizer
 
 
 def loss_and_grad(cfg: ModelConfig, params, lora, batch, lora_scale: float,
-                  tp=None):
+                  tp=None, remat: bool = False):
     """(loss, metrics, grads) of ``T.loss_fn`` w.r.t. the adapter leaves
     only; the base weights take no gradient.  With ``tp`` the gradients
-    are the whole model's, on every rank of the axis."""
+    are the whole model's, on every rank of the axis.  ``remat``: the
+    blocks recompute their activations in the backward."""
     names = [(n, m) for n in sorted(lora) for m in ("A", "B")]
     leaves = {n: {m: lora[n][m].detach().requires_grad_(True)
                   for m in ("A", "B")} for n in lora}
     with torch.enable_grad():
         fwd = leaves if tp is None else tp.local_lora(leaves)
-        loss, metrics = T.loss_fn(cfg, params, fwd, batch, lora_scale, tp=tp)
+        loss, metrics = T.loss_fn(cfg, params, fwd, batch, lora_scale, tp=tp,
+                                  remat=remat)
         flat = torch.autograd.grad(loss, [leaves[n][m] for n, m in names])
     grads = {n: {} for n in lora}
     for (n, m), g in zip(names, flat):
@@ -52,31 +54,69 @@ def loss_and_grad(cfg: ModelConfig, params, lora, batch, lora_scale: float,
     return loss.detach(), {k: v.detach() for k, v in metrics.items()}, grads
 
 
+def _mean_over(mesh, axes, grads, metrics: dict) -> None:
+    """Average the adapter gradients and the metrics over the batch-sharded
+    ranks (``axes`` of ``mesh``), in place, in one all-reduce: the mean
+    over the global batch, which the reference's batch-sharded program
+    takes implicitly."""
+    leaves = [grads[n][m] for n in sorted(grads) for m in ("A", "B")]
+    keys = sorted(metrics)
+    flat = torch.cat([g.reshape(-1).float() for g in leaves]
+                     + [metrics[k].reshape(-1).float() for k in keys])
+    flat = mesh.all_reduce(flat, axes) / mesh.shape[axes]
+    at = 0
+    for g in leaves:
+        g.copy_(flat[at:at + g.numel()].view_as(g))
+        at += g.numel()
+    for k in keys:
+        metrics[k] = flat[at:at + metrics[k].numel()].view_as(
+            metrics[k]).to(metrics[k].dtype)
+        at += metrics[k].numel()
+
+
 def make_train_step(cfg: ModelConfig, opt_cfg: OptimizerConfig, *,
-                    lora_scale: float, num_microbatches: int = 1) -> Callable:
+                    lora_scale: float, num_microbatches: int = 1,
+                    remat: bool = True, tp=None, mesh=None) -> Callable:
     """``(params, lora, opt_state, batch) -> (lora', opt_state',
     metrics)``: one optimizer step on the adapter, the base weights frozen;
     ``num_microbatches > 1`` accumulates the mean gradient over equal
-    splits of the batch."""
+    splits of the batch.  ``remat`` (the reference's default): each block
+    recomputes its activations in the backward.
+
+    ``tp``: the base params are a tensor-parallel rank's pieces (the
+    adapter and its optimizer state stay whole).  ``mesh``: the batch is
+    this rank's rows of a global batch split over the mesh's batch axes
+    (``repro_torch.sharding.batch_axes``), and the gradient and the
+    metrics are averaged over them in one all-reduce before the update, so
+    every rank takes the same step."""
     _, update_fn = make_optimizer(opt_cfg)
+    axes = None
+    if mesh is not None:
+        from repro_torch.sharding import batch_axes
+        axes = batch_axes(mesh)
 
     @torch.no_grad()
     def train_step(params, lora, opt_state, batch):
         n = num_microbatches
         mbs = [{k: v.reshape((n, v.shape[0] // n) + tuple(v.shape[1:]))[i]
                 for k, v in batch.items()} for i in range(n)]
-        loss_sum, grads, ms = 0.0, None, []
+        # running sums, so that every microbatch after the first holds the
+        # same live state (the dry run traces two and scales to n)
+        loss_sum, grads, msum = 0.0, None, None
         for mb in mbs:
-            loss, m, g = loss_and_grad(cfg, params, lora, mb, lora_scale)
+            loss, m, g = loss_and_grad(cfg, params, lora, mb, lora_scale,
+                                       tp=tp, remat=remat)
             loss_sum = loss_sum + loss
-            ms.append(m)
+            msum = m if msum is None else {k: msum[k] + m[k] for k in m}
             grads = g if grads is None else {
                 k: {p: grads[k][p] + g[k][p] for p in g[k]} for k in g}
-        if n > 1:
-            grads = {k: {p: v / n for p, v in e.items()}
-                     for k, e in grads.items()}
-        metrics = {k: torch.stack([m[k] for m in ms]).mean(0) for k in ms[0]}
+            del loss, m, g
+        grads = {k: {p: v / n for p, v in e.items()}
+                 for k, e in grads.items()}
+        metrics = {k: v / n for k, v in msum.items()}
         metrics["total_loss"] = loss_sum / n
+        if axes:
+            _mean_over(mesh, axes, grads, metrics)
         lora_new, opt_new = update_fn(lora, grads, opt_state)
         return lora_new, opt_new, metrics
 
@@ -94,6 +134,27 @@ def make_eval_step(cfg: ModelConfig, *, lora_scale: float,
         return metrics
 
     return eval_step
+
+
+def make_prefill_step(cfg: ModelConfig, *, lora_scale: float,
+                      tp=None) -> Callable:
+    """``(params, lora, batch) -> logits [B, V]`` (f32) of the last
+    position of ``batch["tokens"]`` (with ``"image"`` / ``"audio"`` where
+    the family takes them): the unembedding runs on that position only.
+    With ``tp``, ``params`` are the rank's pieces, ``lora`` is whole and
+    the logits are the rank's vocabulary columns."""
+
+    @torch.no_grad()
+    def prefill_step(params, lora, batch):
+        lo = lora if tp is None else tp.local_lora(lora)
+        logits, _ = T.forward(cfg, params, batch["tokens"], lora=lo,
+                              lora_scale=lora_scale,
+                              vision=batch.get("image"),
+                              audio=batch.get("audio"), last_only=True,
+                              tp=tp)
+        return logits[:, 0].float()
+
+    return prefill_step
 
 
 def make_serve_step(cfg: ModelConfig, *, lora_scale: float,
@@ -345,4 +406,4 @@ def make_chunked_prefill_step(cfg: ModelConfig, *, lora_scale: float,
 __all__ = ["loss_and_grad", "make_chunked_prefill_step", "make_eval_step",
            "make_greedy_generate", "make_multi_adapter_serve_step",
            "make_population_eval", "make_population_generate",
-           "make_serve_step", "make_train_step"]
+           "make_prefill_step", "make_serve_step", "make_train_step"]

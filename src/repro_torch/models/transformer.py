@@ -216,57 +216,83 @@ def _feed_forward(cfg: ModelConfig, bp: dict, x, tp=None):
 
 def _run_blocks(cfg: ModelConfig, blocks: Tree, lora: Tree | None, x, *,
                 lora_scale: float, positions, pad_mask=None, vision=None,
-                enc_out=None, enc_mask=None, tp=None):
-    """The block stack over [B, S, d]: per block, each pattern sublayer's
-    pre-norm mixer (attention, MLA, gated cross-attention over ``vision``
-    or Mamba-2), on enc-dec stacks the cross-attention over ``enc_out``
-    (keys masked by ``enc_mask``), and the feed-forward, all residual.
+                enc_out=None, enc_mask=None, tp=None, remat: bool = False):
+    """The block stack over ``x`` [B, S, d] (or a one-item list holding
+    it, which the stack then owns: with no other reference the input is
+    freed once the first block is done with it): per block, each pattern
+    sublayer's pre-norm mixer (attention, MLA, gated cross-attention over
+    ``vision`` or Mamba-2), on enc-dec stacks the cross-attention over
+    ``enc_out`` (keys masked by ``enc_mask``), and the feed-forward, all
+    residual.
     Only the block-stacked ``s*`` LoRA entries ride the loop.  Returns (x,
     the MoE aux losses summed, f32).  ``tp``: every sublayer runs its
-    rank's pieces (``repro_torch.models.tensor_parallel``)."""
+    rank's pieces (``repro_torch.models.tensor_parallel``).  ``remat``:
+    each block runs under ``torch.utils.checkpoint`` (the reference's
+    ``jax.checkpoint`` around its scan body), so the backward keeps only
+    the blocks' inputs and recomputes each block's activations (and its
+    collectives) once more."""
+    if isinstance(x, list):
+        x = x.pop()
     lora = {k: v for k, v in (lora or {}).items() if k.startswith("s")}
     if enc_out is not None and tp is not None and tp.attn:
         enc_out = tp.copy(enc_out)     # its gradient: the ranks' partials
     aux_tot = torch.zeros((), dtype=torch.float32, device=x.device)
+    block = lambda x, bp, lt: _block(cfg, bp, lt, x, lora_scale=lora_scale,
+                                     positions=positions, pad_mask=pad_mask,
+                                     vision=vision, enc_out=enc_out,
+                                     enc_mask=enc_mask, tp=tp)
+    if remat and torch.is_grad_enabled():
+        from torch.utils.checkpoint import checkpoint
+        run = lambda x, bp, lt: checkpoint(block, x, bp, lt,
+                                           use_reentrant=False,
+                                           preserve_rng_state=False)
+    else:
+        run = block
     for l in range(cfg.num_blocks):
-        bp = _layer(blocks, l)
-        lt = _layer(lora, l)
-        aux_l = torch.zeros((), dtype=torch.float32, device=x.device)
-        for i, kind in enumerate(cfg.pattern):
-            pre, sp = f"s{i}", bp[f"s{i}"]
-            h = L.rms_norm(x, sp["ln1"], cfg.norm_eps)
-            if "mla" in sp:
-                y = L.mla_forward(sp["mla"], h, cfg,
-                                  lora=_sub_lora(lt, f"{pre}.mla"),
-                                  lora_scale=lora_scale, positions=positions,
-                                  pad_mask=pad_mask, tp=tp)
-            elif "mamba" in sp:
-                mp = _fold_mamba(sp["mamba"], _sub_lora(lt, f"{pre}.mamba"),
-                                 lora_scale)
-                y = L.mamba_forward(mp, h, cfg, tp)
-            elif "cross" in sp:
-                y = L.attention_forward(
-                    sp["cross"], h, cfg, kind="cross_attn",
-                    lora=_sub_lora(lt, f"{pre}.cross"), lora_scale=lora_scale,
-                    kv_src=vision, tp=tp)
-            else:
-                y = L.attention_forward(
-                    sp["attn"], h, cfg, kind=kind,
-                    lora=_sub_lora(lt, f"{pre}.attn"), lora_scale=lora_scale,
-                    positions=positions, pad_mask=pad_mask, tp=tp)
-            x = x + y
-            if "dec_cross" in sp:
-                hx = L.rms_norm(x, sp["lnx"], cfg.norm_eps)
-                x = x + L.attention_forward(
-                    sp["dec_cross"], hx, cfg, kind="cross_attn",
-                    lora=_sub_lora(lt, f"{pre}.dec_cross"),
-                    lora_scale=lora_scale, kv_src=enc_out, pad_mask=enc_mask,
-                    tp=tp)
-            x, aux = _feed_forward(cfg, sp, x, tp)
-            if aux is not None:
-                aux_l = aux_l + aux
+        x, aux_l = run(x, _layer(blocks, l), _layer(lora, l))
         aux_tot = aux_tot + aux_l
+        del aux_l          # every block then runs beside the same live set
     return x, aux_tot
+
+
+def _block(cfg: ModelConfig, bp: Tree, lt: Tree, x, *, lora_scale: float,
+           positions, pad_mask, vision, enc_out, enc_mask, tp):
+    """One block of :func:`_run_blocks`: returns (x, its MoE aux, f32)."""
+    aux_l = torch.zeros((), dtype=torch.float32, device=x.device)
+    for i, kind in enumerate(cfg.pattern):
+        pre, sp = f"s{i}", bp[f"s{i}"]
+        h = L.rms_norm(x, sp["ln1"], cfg.norm_eps)
+        if "mla" in sp:
+            y = L.mla_forward(sp["mla"], h, cfg,
+                              lora=_sub_lora(lt, f"{pre}.mla"),
+                              lora_scale=lora_scale, positions=positions,
+                              pad_mask=pad_mask, tp=tp)
+        elif "mamba" in sp:
+            mp = _fold_mamba(sp["mamba"], _sub_lora(lt, f"{pre}.mamba"),
+                             lora_scale)
+            y = L.mamba_forward(mp, h, cfg, tp)
+        elif "cross" in sp:
+            y = L.attention_forward(
+                sp["cross"], h, cfg, kind="cross_attn",
+                lora=_sub_lora(lt, f"{pre}.cross"), lora_scale=lora_scale,
+                kv_src=vision, tp=tp)
+        else:
+            y = L.attention_forward(
+                sp["attn"], h, cfg, kind=kind,
+                lora=_sub_lora(lt, f"{pre}.attn"), lora_scale=lora_scale,
+                positions=positions, pad_mask=pad_mask, tp=tp)
+        x = x + y
+        if "dec_cross" in sp:
+            hx = L.rms_norm(x, sp["lnx"], cfg.norm_eps)
+            x = x + L.attention_forward(
+                sp["dec_cross"], hx, cfg, kind="cross_attn",
+                lora=_sub_lora(lt, f"{pre}.dec_cross"),
+                lora_scale=lora_scale, kv_src=enc_out, pad_mask=enc_mask,
+                tp=tp)
+        x, aux = _feed_forward(cfg, sp, x, tp)
+        if aux is not None:
+            aux_l = aux_l + aux
+    return x, aux_l
 
 
 def encode(cfg: ModelConfig, params: Tree, audio, lora=None,
@@ -303,7 +329,8 @@ def encode(cfg: ModelConfig, params: Tree, audio, lora=None,
 
 def forward(cfg: ModelConfig, params: Tree, tokens, *, lora=None,
             lora_scale: float = 1.0, vision=None, audio=None, pad_mask=None,
-            audio_mask=None, last_only: bool = False, tp=None):
+            audio_mask=None, last_only: bool = False, tp=None,
+            remat: bool = False):
     """Training / prefill forward.  ``vision`` [B, P, vision_dim]: a prefix
     VLM projects it into a P-position prefix ahead of the text; a cross
     VLM's gated cross layers attend to it.  ``audio`` [B, P, audio_dim]
@@ -313,7 +340,9 @@ def forward(cfg: ModelConfig, params: Tree, tokens, *, lora=None,
 
     ``tp`` (``repro_torch.models.tensor_parallel.TensorParallel``): the
     params and ``lora`` are this rank's pieces (``tp.shard_params``,
-    ``tp.local_lora``) and the logits its vocabulary columns."""
+    ``tp.local_lora``) and the logits its vocabulary columns.  ``remat``:
+    the blocks recompute their activations in the backward
+    (:func:`_run_blocks`)."""
     x = (params["embed"][tokens] if tp is None
          else tp.embed(params["embed"], tokens))
     B, S = tokens.shape
@@ -332,11 +361,14 @@ def forward(cfg: ModelConfig, params: Tree, tokens, *, lora=None,
     if cfg.family == "encdec":
         enc_out = encode(cfg, params, audio, lora, lora_scale, audio_mask,
                          tp)
-    x, aux = _run_blocks(cfg, params["blocks"], lora, x,
+    held = [x]           # the stack takes the only reference (see _run_blocks)
+    del x
+    x, aux = _run_blocks(cfg, params["blocks"], lora, held,
                          lora_scale=lora_scale, positions=positions,
                          pad_mask=pad_mask,
                          vision=vision if cfg.vision_mode == "cross" else None,
-                         enc_out=enc_out, enc_mask=audio_mask, tp=tp)
+                         enc_out=enc_out, enc_mask=audio_mask, tp=tp,
+                         remat=remat)
     x = L.rms_norm(x, params["final_ln"], cfg.norm_eps)
     if n_prefix:
         x = x[:, n_prefix:]
@@ -350,20 +382,20 @@ def forward(cfg: ModelConfig, params: Tree, tokens, *, lora=None,
 
 
 def loss_fn(cfg: ModelConfig, params: Tree, lora: Tree | None, batch: dict,
-            lora_scale: float = 1.0, tp=None):
+            lora_scale: float = 1.0, tp=None, remat: bool = False):
     """Masked next-token cross-entropy plus the MoE aux loss.  ``batch``:
     tokens, labels, loss_mask, optional image and image_mask (a zero
     ``image_mask`` row zeroes that example's vision input: the
     missing-modality path) and audio (enc-dec).  Returns (loss + aux,
     {"loss", "aux", "acc"}), all 0-d f32 tensors.  ``tp``: as in
     :func:`forward`; the log-softmax and the argmax then span every rank's
-    vocabulary columns."""
+    vocabulary columns.  ``remat``: as in :func:`forward`."""
     vision = batch.get("image")
     if vision is not None and "image_mask" in batch:
         vision = (vision * batch["image_mask"][:, None, None]).to(vision.dtype)
     logits, aux = forward(cfg, params, batch["tokens"], lora=lora,
                           lora_scale=lora_scale, vision=vision,
-                          audio=batch.get("audio"), tp=tp)
+                          audio=batch.get("audio"), tp=tp, remat=remat)
     logits = logits.float()
     labels = batch["labels"].long()
     if tp is None:
