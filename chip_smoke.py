@@ -228,6 +228,17 @@ Phases (each raises on failure; the script then exits non-zero):
     ``dim_agg`` launch; with 4 cards or more a 2x2 round whose collective
     counts and bytes equal a fake-process-group trace's, and a 256 MiB
     NCCL all-reduce's bus bandwidth.
+22. placements — the production steps' placements (FSDP over
+    ``"data"``, replicated K/V heads, ``ep``, ``sp``, ``ep_sp``, ``seq``,
+    ``scoreshard``): each mode on a (1, 1) ``("data", "model")`` mesh over
+    NCCL equal to the unmeshed step bit for bit (``PLACEMENT_RUNS``:
+    qwen2-0.5b uncut train / prefill / serve under every mode, Jamba-8
+    under ``ep`` and ``ep_sp``, DeepSeek-V2-2's decode under
+    ``scoreshard`` and ``seq_scoreshard``, bf16); with 4 cards or more
+    every mode on a 2x2 mesh in f32 against the baseline placement; and
+    the dry run's records of ``PLACEMENT_SWEEP`` (the pairs each mode
+    changes, on a fake 16x16 process group), traced on the host's cores
+    from the start of the run.
 
 Each path that runs a kernel (ops: ``lora_matmul`` and ``flash_attention``;
 serve, slo and families: BGMV; train, faults, timelines, population,
@@ -4967,6 +4978,299 @@ def phase_analysis(dev_name: str) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# placements: the production steps' placements (FSDP, replicated K/V heads,
+# expert parallelism, sequence parallelism, sequence-split caches,
+# scoreshard) held against the unmeshed steps
+# ---------------------------------------------------------------------------
+
+PLACEMENT_MODES = ("baseline", "ep", "sp", "ep_sp", "seq", "scoreshard")
+# (arch, layers on one card, layers on four, steps, modes): each mode's
+# (1, 1) run on NCCL, bf16 at published widths, against the unmeshed step
+# bit for bit; the 2x2 runs in f32 (MoE cut to 4 experts)
+PLACEMENT_RUNS = [
+    ("qwen2-0.5b", None, 8, ("train", "prefill", "serve"), PLACEMENT_MODES),
+    ("jamba-v0.1-52b", 8, 8, ("train", "prefill", "serve"),
+     ("ep", "ep_sp")),
+    ("deepseek-v2-236b", 2, 2, ("serve",), ("scoreshard", "seq_scoreshard"))]
+# (batch, sequence, microbatches | decode steps) of each step
+PLACEMENT_SIZES = {"train": (4, 512, 2), "prefill": (4, 1024, None),
+                   "serve": (8, 512, 4)}
+# the dry run's sweep on a fake 16x16 process group: (mode, arch, shape),
+# the pairs each mode changes (started at the run's beginning, on the
+# host's cores)
+PLACEMENT_SWEEP = [
+    ("baseline", "qwen2-72b", "decode_32k"),
+    ("baseline", "minicpm-2b", "decode_32k"),
+    ("baseline", "gemma3-12b", "long_500k"),
+    ("baseline", "jamba-v0.1-52b", "long_500k"),
+    ("seq", "qwen2-72b", "decode_32k"),
+    ("seq", "minicpm-2b", "decode_32k"),
+    ("ep", "llama4-scout-17b-a16e", "decode_32k"),
+    ("ep", "deepseek-v2-236b", "decode_32k"),
+    ("sp", "qwen2-0.5b", "train_4k"),
+    ("ep_sp", "jamba-v0.1-52b", "train_4k"),
+    ("scoreshard", "deepseek-v2-236b", "decode_32k")]
+PLACEMENT_SWEEP_JOBS = 4
+PLACEMENT_TIMEOUT_S = 600
+
+
+def _placement_sweep(out_dir: str) -> None:
+    """The ``PLACEMENT_SWEEP`` records through the dry run's own task
+    runner, ``PLACEMENT_SWEEP_JOBS`` at a time (run in a subprocess)."""
+    import multiprocessing as mp_
+
+    from repro_torch.launch import dryrun as D
+    tasks = [("step", arch, shape, False, D.DEFAULT_RANK, mode, 0, out_dir)
+             for mode, arch, shape in PLACEMENT_SWEEP]
+    with mp_.get_context("spawn").Pool(PLACEMENT_SWEEP_JOBS) as pool:
+        for tag, rec in pool.imap(D._run_task, tasks):
+            D._report(tag, rec)
+
+
+def _placement_sweep_start():
+    """Start :func:`_placement_sweep` in a subprocess; returns ``(proc,
+    out_dir)``."""
+    out_dir = os.path.join(ROOT, "build", "placements_dryrun")
+    os.makedirs(out_dir, exist_ok=True)
+    code = ("import sys; sys.path.insert(0, %r); sys.path.insert(0, %r);"
+            " import chip_smoke; chip_smoke._placement_sweep(%r)"
+            % (SRC, ROOT, out_dir))
+    env = dict(os.environ, PYTHONPATH=SRC)
+    return subprocess.Popen([sys.executable, "-c", code],
+                            stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                            text=True, env=env, cwd=ROOT), out_dir
+
+
+def _placement_sweep_records(proc, out_dir: str) -> dict:
+    out, _ = proc.communicate(timeout=PLACEMENT_TIMEOUT_S)
+    if proc.returncode != 0:
+        raise AssertionError(f"placement sweep exited {proc.returncode}:\n"
+                             f"{out[-3000:]}")
+    from repro_torch.launch.dryrun import _tag
+    recs = {}
+    for mode, arch, shape in PLACEMENT_SWEEP:
+        tag = _tag(arch, shape, False, mode)
+        with open(os.path.join(out_dir, tag + ".json")) as f:
+            rec = json.load(f)
+        if "error" in rec:
+            raise AssertionError(f"placement sweep {tag}: {rec['error']}")
+        recs[tag] = rec
+    return recs
+
+
+def _equal_trees(a, b, what: str) -> None:
+    """Raise unless every tensor leaf of ``a`` equals ``b``'s bit for
+    bit."""
+    import torch
+    if isinstance(a, dict):
+        for k in a:
+            _equal_trees(a[k], b[k], f"{what}.{k}")
+    elif isinstance(a, (list, tuple)):
+        for i, (x, y) in enumerate(zip(a, b)):
+            _equal_trees(x, y, f"{what}[{i}]")
+    elif isinstance(a, torch.Tensor):
+        if not torch.equal(a, b):
+            d = (a.float() - b.float()).abs().max().item()
+            raise AssertionError(f"placements: {what} differs from the "
+                                 f"unmeshed step by up to {d:.3e}")
+    elif a != b:
+        raise AssertionError(f"placements: {what} {a} != {b}")
+
+
+def _placement_steps(cfg, params, lora, mesh, mode: str, steps) -> dict:
+    """Each of ``steps`` under ``mode`` on ``mesh`` (or unmeshed, ``mesh``
+    None): the adapter and metrics after one AdamW step, the prefill
+    logits, the serve logits of every decode step and the final cache."""
+    import torch
+
+    from repro_torch.launch import dryrun as D
+    from repro_torch.launch import steps as S
+    from repro_torch.models import transformer as T
+    from repro_torch.optim import OptimizerConfig, adamw_init
+    parts = D.mode_parts(mode)
+    out = {}
+    for step in steps:
+        tp, p = None, params
+        if mesh is not None:
+            tp = D.make_tp(cfg, mesh, step if step != "serve" else "decode",
+                           mode)
+            p = tp.shard_params(params)
+        g = torch.Generator(device="cuda").manual_seed(7)
+        B, seq, k = PLACEMENT_SIZES[step]
+        if step == "train":
+            batch = _rand_batch(cfg, (B,), seq, g, "cuda")
+            batch["loss_mask"] = (torch.rand((B, seq), generator=g,
+                                             device="cuda") < 0.7).float()
+            fn = S.make_train_step(cfg, OptimizerConfig(peak_lr=1e-3),
+                                   lora_scale=FAMILY_LORA_SCALE,
+                                   num_microbatches=k, tp=tp, mesh=mesh)
+            new, _, m = fn(p, lora, adamw_init(lora), batch)
+            out["train"] = {"lora": new, "metrics": m}
+        elif step == "prefill":
+            batch = _rand_batch(cfg, (B,), seq, g, "cuda", labels=False)
+            fn = S.make_prefill_step(cfg, lora_scale=FAMILY_LORA_SCALE,
+                                     tp=tp, mesh=mesh)
+            out["prefill"] = fn(p, lora, batch)
+        else:
+            cache_axis = ("model" if mesh is not None and parts["seq"]
+                          else None)
+            score_axis = ("model" if mesh is not None and parts["scoreshard"]
+                          and cfg.mla is not None else None)
+            toks = torch.randint(0, cfg.vocab_size, (B, k), generator=g,
+                                 device="cuda")
+            cache = T.init_cache(cfg, p, B, seq, tp=tp,
+                                 cache_axis=cache_axis)
+            fn = S.make_serve_step(cfg, lora_scale=FAMILY_LORA_SCALE, tp=tp,
+                                   mesh=mesh, cache_axis=cache_axis,
+                                   score_axis=score_axis)
+            lo = lora if tp is None else tp.local_lora(lora)
+            logits = []
+            for t in range(k):
+                lg, cache = fn(p, lo, cache, toks[:, t], seq - k + t)
+                logits.append(lg)
+            out["serve"] = {"logits": logits, "cache": cache}
+        torch.cuda.synchronize()
+    return out
+
+
+def _placements_rank(rank: int, world: int, rdv: str, out_path: str,
+                     parts: tuple) -> None:
+    """One rank of the placements phase (spawned, NCCL).  World size 1:
+    every ``PLACEMENT_RUNS`` mode on a (1, 1) ``("data", "model")`` mesh
+    against the unmeshed steps bit for bit.  Four ranks: every mode of
+    qwen2-0.5b (8 layers) and of Jamba-8 and DeepSeek-V2-2 cut to 4
+    experts on a 2x2 mesh in f32, against the baseline placement on the
+    same mesh within 1e-4 (logits, losses) and 2e-3 (adapters after one
+    AdamW step).  Rank 0 writes the record to ``out_path``."""
+    import dataclasses
+
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.launch.mesh import Mesh, init_distributed
+    from repro_torch.launch.roofline import collective_bytes
+    from repro_torch.models.transformer import init_params
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    init_distributed(init_method=f"file://{rdv}", world_size=world,
+                     rank=rank)
+    one = world == 1
+    res = {"runs": {}}
+    try:
+        mesh = Mesh((1, 1) if one else (2, 2), ("data", "model"))
+        for arch, layers, layers_four, steps, modes in PLACEMENT_RUNS:
+            cfg = _family_cfg(arch, layers if one else layers_four)
+            if not one:
+                cfg = dataclasses.replace(cfg, dtype="float32")
+                if cfg.moe is not None:
+                    cfg = dataclasses.replace(cfg, moe=dataclasses.replace(
+                        cfg.moe, num_experts=4,
+                        experts_per_token=min(cfg.moe.experts_per_token, 2)))
+            params = init_params(cfg, seed=3)
+            lora = _cuda_adapter(cfg, 5)
+            t0 = time.perf_counter()
+            want = _placement_steps(cfg, params, lora,
+                                    None if one else mesh, "baseline", steps)
+            walls = {"reference": time.perf_counter() - t0}
+            colls = {}
+            for mode in modes:
+                mesh.reset_collectives()
+                t0 = time.perf_counter()
+                got = _placement_steps(cfg, params, lora, mesh, mode, steps)
+                walls[mode] = time.perf_counter() - t0
+                colls[mode] = collective_bytes(mesh)["counts"]
+                if one:
+                    _equal_trees(got, want, f"{arch} {mode}")
+                else:
+                    _close_trees(got, want, f"{arch} {mode}")
+            res["runs"][arch] = {"layers": cfg.num_layers, "steps": steps,
+                                 "modes": list(modes), "walls": walls,
+                                 "collectives": colls}
+            del params
+            torch.cuda.empty_cache()
+        if rank == 0:
+            with open(out_path, "w") as f:
+                json.dump(res, f, default=float)
+    finally:
+        dist.destroy_process_group()
+
+
+def _close_trees(a, b, what: str) -> None:
+    """``a`` against ``b`` leaf by leaf: adapters within 2e-3 (one AdamW
+    step moves an element by at most its learning rate), everything else
+    within 1e-4."""
+    import torch
+    if isinstance(a, dict):
+        for k in a:
+            _close_trees(a[k], b[k], f"{what}.{k}")
+    elif isinstance(a, (list, tuple)):
+        for i, (x, y) in enumerate(zip(a, b)):
+            _close_trees(x, y, f"{what}[{i}]")
+    elif isinstance(a, torch.Tensor):
+        if a.shape != b.shape:
+            return                       # caches of another placement
+        tol = 2e-3 if ".lora." in what else 1e-4
+        d = (a.float() - b.float()).abs().max().item()
+        if d > tol:
+            raise AssertionError(f"placements 2x2: {what} differs from the "
+                                 f"baseline placement by {d:.3e}")
+
+
+def phase_placements(dev_name: str, sweep) -> dict:
+    """The placements of the production steps: with one card, every mode
+    on a (1, 1) mesh over NCCL equal to the unmeshed step bit for bit
+    (``PLACEMENT_RUNS``: qwen2-0.5b train / prefill / serve under every
+    mode, Jamba-8 under ``ep`` and ``ep_sp``, DeepSeek-V2-2's decode under
+    ``scoreshard`` and ``seq_scoreshard``); with four cards also every
+    mode on a 2x2 mesh against the baseline placement; and the dry run's
+    records of ``PLACEMENT_SWEEP`` on a fake 16x16 process group, started
+    at the run's beginning (``sweep``)."""
+    import gc
+
+    import torch
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    n_dev = torch.cuda.device_count()
+    out = {"devices": n_dev,
+           "one": _spawn_mesh(1, (), target=_placements_rank,
+                              timeout=PLACEMENT_TIMEOUT_S)}
+    for arch, r in out["one"]["runs"].items():
+        print(f"placements (1x1 on {dev_name}): {arch} ({r['layers']} "
+              f"layers) {'/'.join(r['steps'])} under {r['modes']} equal to "
+              f"the unmeshed steps bit for bit; walls "
+              f"{ {k: round(v, 2) for k, v in r['walls'].items()} } s; "
+              f"collectives {r['collectives']}", flush=True)
+    if n_dev >= 4:
+        out["four"] = _spawn_mesh(4, (), target=_placements_rank,
+                                  timeout=PLACEMENT_TIMEOUT_S)
+        for arch, r in out["four"]["runs"].items():
+            print(f"placements (2x2): {arch} under {r['modes']} within "
+                  f"the limits of the baseline placement; collectives "
+                  f"{r['collectives']}", flush=True)
+    else:
+        print(f"placements: the four-card part did not run ({n_dev} "
+              f"device{'s' if n_dev != 1 else ''}; it needs 4)", flush=True)
+    t0 = time.perf_counter()
+    out["dryrun"] = _placement_sweep_records(*sweep)
+    out["dryrun_wait_s"] = time.perf_counter() - t0
+    for tag, rec in out["dryrun"].items():
+        if "skipped" in rec:
+            print(f"placements dry run {tag}: skipped", flush=True)
+            continue
+        mem, rt = rec["memory_analysis"], rec["roofline_traced"]
+        print(f"placements dry run {tag}: arguments "
+              f"{mem['argument_size_bytes'] / 1e9:.2f} GB, peak "
+              f"{mem['peak_bytes'] / 1e9:.2f} GB, fits {mem['fits']}, "
+              f"collective bytes {rec['collectives']['per_op']}, traced "
+              f"-> {rt['dominant']}, traced/analytic FLOPs "
+              f"{rec['traced_to_analytic_flops']:.2f}, trace "
+              f"{rec['trace_s']:.1f} s", flush=True)
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -4989,6 +5293,7 @@ def main() -> int:
     from concurrent.futures import ThreadPoolExecutor
 
     from repro_torch.kernels import build as kbuild
+    sweep = _placement_sweep_start()     # host cores, beside the card
     t0 = time.perf_counter()
     with ThreadPoolExecutor(len(KERNEL_SOURCES)) as pool:   # nvcc in parallel
         list(pool.map(kbuild.build, KERNEL_SOURCES))
@@ -5029,6 +5334,7 @@ def main() -> int:
     meshed = timed("mesh", phase_mesh, dev_name)
     meshed_families = timed("mesh_families", phase_mesh_families, dev_name)
     analysis = timed("analysis", phase_analysis, dev_name)
+    placements = timed("placements", phase_placements, dev_name, sweep)
     print("phase wall s: " + ", ".join(f"{k} {v:.1f}"
                                        for k, v in phase_s.items()),
           flush=True)
@@ -5216,7 +5522,7 @@ def main() -> int:
                    "checkpoint": ckpt, "eval_ref": eval_ref, "cli": cli,
                    "families": families, "vision": vision,
                    "mesh": meshed, "mesh_families": meshed_families,
-                   "analysis": analysis},
+                   "analysis": analysis, "placements": placements},
                   f, indent=1, default=float)
     print(json.dumps({"kernels": records}))
     print(smi)
@@ -5226,5 +5532,36 @@ def main() -> int:
     return 0
 
 
+def placements_four() -> int:
+    """``python3 chip_smoke.py --placements-four``: the placements phase's
+    four-card part alone (every mode on a 2x2 NCCL mesh against the
+    baseline placement), on a machine with four cards."""
+    import torch
+
+    if not torch.cuda.is_available() or torch.cuda.device_count() < 4:
+        print("chip_smoke: the four-card part needs 4 CUDA devices",
+              file=sys.stderr)
+        return 1
+    sys.path.insert(0, SRC)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, check=True).stdout.strip()
+    print("device: " + smi.replace("\n", " | "), flush=True)
+    t0 = time.perf_counter()
+    four = _spawn_mesh(4, (), target=_placements_rank,
+                       timeout=PLACEMENT_TIMEOUT_S)
+    wall = time.perf_counter() - t0
+    for arch, r in four["runs"].items():
+        print(f"placements (2x2): {arch} ({r['layers']} layers) under "
+              f"{r['modes']} within the limits of the baseline placement; "
+              f"walls { {k: round(v, 2) for k, v in r['walls'].items()} } "
+              f"s; collectives {r['collectives']}", flush=True)
+    print(f"four-card part wall {wall:.1f} s", flush=True)
+    return 0
+
+
 if __name__ == "__main__":
-    sys.exit(main())
+    sys.exit(placements_four() if sys.argv[1:] == ["--placements-four"]
+             else main())

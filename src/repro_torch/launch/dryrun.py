@@ -19,9 +19,9 @@ mode of this module, which counts
   writes its outputs);
 * the peak of live bytes the trace allocates above its arguments;
 
-and reads the mesh's collective counters — the bytes of every all-reduce
-and all-gather — into the reference's schema
-(``repro_torch.launch.roofline.collective_bytes``).
+and reads the mesh's collective counters — the bytes of every
+all-reduce, all-gather, reduce-scatter and all-to-all — into the
+reference's schema (``repro_torch.launch.roofline.collective_bytes``).
 
 What is traced.  A full-size stack traced op by op would take tens of
 minutes per combination, so a step runs on the first ``b`` blocks of the
@@ -49,10 +49,25 @@ assumes the reference's FSDP placement), ``model_flops_per_device`` and
 ``useful_flops_ratio``; plus ``traced_blocks``,
 ``traced_microbatches`` and ``traced_to_analytic_flops``.
 
-Only the baseline placement exists: ``--sharding-mode`` ``ep``, ``sp``,
-``ep_sp``, ``seq`` or ``scoreshard`` raises ``NotImplementedError`` (they
-change execution — all-to-all expert dispatch, sequence parallelism —
-which the port does not have; ROADMAP.md queue 1, item 1.5).
+Placements.  Every step runs the reference's ``param_spec``: tensor
+parallel over ``"model"`` (``repro_torch.models.tensor_parallel``) and
+FSDP over ``"data"`` (each rank holds 1/16 of every large weight and
+gathers a block's weights as the block runs).  ``--sharding-mode`` is
+parsed as the reference parses it, by its ``_``-separated parts (``ep``,
+``sp``, ``ep_sp``, ``seq``, ``scoreshard``, ``seq_scoreshard``, ...):
+
+* ``ep``: MoE experts split over ``"data"``, the picks sent to their
+  expert's owner and back by all-to-all (where E does not divide, the
+  experts stay whole and the record says ``ep_degraded``);
+* ``sp``: train steps run sequence parallel over ``"model"``
+  (all-gathers and reduce-scatters in place of the all-reduces);
+* ``seq``: decode caches split their sequence over ``"model"``;
+* ``scoreshard``: MLA's decode scores split over ``"model"`` (every other
+  arch runs its baseline, as in the reference).
+
+A decode cache whose batch does not divide the batch axes splits its
+sequence over ``"data"`` in every mode (the reference's fallback;
+``long_500k``).  The record's ``placement`` says what ran.
 
 Usage (records under ``build/dryrun/`` by default)::
 
@@ -355,18 +370,41 @@ def _local_batch(global_batch: int, dp: int) -> int:
     return global_batch // dp if global_batch % dp == 0 else global_batch
 
 
-def step_calls(cfg, shape, *, mesh, tp, rank: int, num_micro_override=None):
+def mode_parts(mode: str) -> dict:
+    """The reference's reading of a ``--sharding-mode`` string."""
+    parts = mode.split("_")
+    return {"ep": "ep" in parts, "sp": "sp" in parts, "seq": "seq" in parts,
+            "scoreshard": "scoreshard" in mode}
+
+
+def step_calls(cfg, shape, *, mesh, tp, rank: int, num_micro_override=None,
+               mode: str = "baseline"):
     """The abstract inputs of ``shape``'s step on this rank and a
     ``make_call(b, m)`` for :func:`scaled_trace`: ``(args_bytes,
     num_micro, make_call)``.  ``args_bytes`` are the whole model's; a
-    traced call over ``b`` blocks reads the first ``b`` blocks of them."""
+    traced call over ``b`` blocks reads the first ``b`` blocks of them.
+    A batch that divides the batch axes is split over them (the steps get
+    ``mesh``: the global batch's MoE routing and loss); a decode cache
+    splits its sequence as ``repro_torch.sharding.decode_cache_axis``
+    says for ``mode``."""
     from repro_torch.launch.steps import (make_prefill_step, make_serve_step,
                                           make_train_step)
     from repro_torch.optim import OptimizerConfig, adamw_init
+    from repro_torch.sharding import decode_cache_axis
     _, dp = _mesh_dims(mesh)
     lora_scale = 16.0 / rank
     B = _local_batch(shape.global_batch, dp)
+    split = mesh if mesh is not None and B != shape.global_batch else None
     kind = shape.kind
+    parts = mode_parts(mode)
+    cache_axis = score_axis = None
+    if kind == "decode" and mesh is not None:
+        cache_axis = decode_cache_axis(mesh, shape.global_batch,
+                                       shape.seq_len,
+                                       "seq" if parts["seq"] else "baseline")
+        if parts["scoreshard"] and cfg.mla is not None \
+                and "model" in mesh.axis_names:
+            score_axis = "model"
     num_micro = None
     if kind == "train":
         num_micro = num_micro_override or max(shape.global_batch // dp, 1)
@@ -384,7 +422,7 @@ def step_calls(cfg, shape, *, mesh, tp, rank: int, num_micro_override=None):
             return params, lora, None, batch_specs(cfg, B, shape.seq_len,
                                                    with_labels=False)
         return params, lora, abstract_cache(c, params, B, shape.seq_len,
-                                            tp=tp), \
+                                            tp=tp, cache_axis=cache_axis), \
             torch.empty((B,), dtype=torch.long, device="meta")
 
     args = inputs(cfg)
@@ -395,20 +433,37 @@ def step_calls(cfg, shape, *, mesh, tp, rank: int, num_micro_override=None):
         cb = _blocks_cfg(cfg, b)
         if kind == "train":
             step = make_train_step(cb, opt_cfg, lora_scale=lora_scale,
-                                   num_microbatches=m, tp=tp, mesh=mesh)
+                                   num_microbatches=m, tp=tp, mesh=split)
             mbs = batch_specs(cfg, m * (B // num_micro), shape.seq_len,
                               with_labels=True)
             return step, (params, lora, state, mbs)
         if kind == "prefill":
-            return make_prefill_step(cb, lora_scale=lora_scale, tp=tp), \
-                (params, lora, batch)
-        serve = make_serve_step(cb, lora_scale=lora_scale, tp=tp)
+            return make_prefill_step(cb, lora_scale=lora_scale, tp=tp,
+                                     mesh=split), (params, lora, batch)
+        serve = make_serve_step(cb, lora_scale=lora_scale, tp=tp, mesh=split,
+                                cache_axis=cache_axis, score_axis=score_axis)
         local = (lambda lo: lo) if tp is None else tp.local_lora
         return (lambda p, lo, c, t: serve(p, local(lo), c, t,
                                           shape.seq_len - 1)), \
             (params, lora, state, batch)
 
+    make_call.placement = {"batch_split": split is not None,
+                           "cache_axis": cache_axis,
+                           "score_axis": score_axis}
     return tree_bytes(args), num_micro, make_call
+
+
+def make_tp(cfg, mesh, kind: str, mode: str = "baseline"):
+    """The production steps' plan on ``mesh`` under ``mode``: tensor
+    parallel over ``"model"`` with FSDP over ``"data"``, expert parallel
+    under ``ep``, sequence parallel under ``sp`` (train steps only, as in
+    the reference)."""
+    from repro_torch.models.tensor_parallel import TensorParallel
+    if "model" not in mesh.axis_names:
+        return None
+    parts = mode_parts(mode)
+    return TensorParallel(cfg, mesh, fsdp=True, ep=parts["ep"],
+                          sp=parts["sp"] and kind == "train")
 
 
 def _memory(args_bytes: int, temp: int) -> dict:
@@ -434,15 +489,11 @@ def _shape_name(mesh) -> str:
 
 
 def _check_mode(sharding_mode: str) -> None:
-    if sharding_mode not in MODES:
-        raise ValueError(f"unknown sharding mode {sharding_mode!r}; the "
-                         f"reference's are {MODES}")
-    if sharding_mode != "baseline":
-        raise NotImplementedError(
-            f"sharding mode {sharding_mode!r} changes execution (expert "
-            "all-to-all dispatch, sequence parallelism, a sequence-sharded "
-            "cache), which the port does not have yet: ROADMAP.md queue 1, "
-            "item 1.5; only 'baseline' is traced")
+    known = {"baseline", "ep", "sp", "seq", "scoreshard"}
+    if not set(sharding_mode.split("_")) <= known:
+        raise ValueError(f"unknown sharding mode {sharding_mode!r}: its "
+                         f"parts must be among {sorted(known)} (the "
+                         f"reference's modes are {MODES})")
 
 
 def dryrun_one(arch: str, shape_name: str, *, multi_pod: bool,
@@ -455,7 +506,6 @@ def dryrun_one(arch: str, shape_name: str, *, multi_pod: bool,
     config (the tests pass reduced ones)."""
     from repro_torch.launch.analytic import analytic_terms, mesh_info
     from repro_torch.launch.mesh import make_production_mesh
-    from repro_torch.models.tensor_parallel import TensorParallel
     _check_mode(sharding_mode)
     cfg = cfg or get_config(arch)
     shape = INPUT_SHAPES[shape_name]
@@ -470,10 +520,18 @@ def dryrun_one(arch: str, shape_name: str, *, multi_pod: bool,
     mesh = mesh or make_production_mesh(multi_pod=multi_pod)
     rec["mesh"] = _shape_name(mesh)
     t0 = time.perf_counter()
-    tp = TensorParallel(cfg, mesh) if "model" in mesh.axis_names else None
+    tp = make_tp(cfg, mesh, shape.kind, sharding_mode)
     args_bytes, num_micro, make_call = step_calls(
         cfg, shape, mesh=mesh, tp=tp, rank=rank,
-        num_micro_override=num_micro_override)
+        num_micro_override=num_micro_override, mode=sharding_mode)
+    parts = mode_parts(sharding_mode)
+    rec["placement"] = dict(
+        make_call.placement, fsdp=bool(tp and tp.fsdp),
+        expert_parallel=bool(tp and tp.ep),
+        ep_degraded=bool(tp and tp.ep_degraded),
+        seq_parallel=bool(tp and tp.sp),
+        kv_heads_replicated=bool(tp and tp.attn and tp.kv_groups < tp.n),
+        attention_split=bool(tp and (tp.attn or tp.mla)))
     total, how = scaled_trace(make_call, cfg.num_blocks, num_micro, mesh,
                               first=1 if shape.kind == "prefill" else 2)
     rec["trace_s"] = time.perf_counter() - t0
@@ -486,8 +544,13 @@ def dryrun_one(arch: str, shape_name: str, *, multi_pod: bool,
     rec["collectives"] = _coll(mesh, total)
     rec["roofline_traced"] = RL.roofline(rec["cost_analysis"],
                                          rec["collectives"]).as_dict()
+    opts = {}
+    if parts["ep"]:
+        opts["expert_parallel"] = True
+    if parts["sp"]:
+        opts["seq_parallel"] = True
     at = analytic_terms(cfg, shape, mesh_info(multi_pod), rank=rank,
-                        num_micro=num_micro)
+                        num_micro=num_micro, opts=opts)
     rec["roofline"] = at.roofline()
     n_active = cfg.active_param_count()
     if shape.kind == "train":
@@ -608,8 +671,6 @@ def _run_task(task: tuple) -> tuple:
             rec = dryrun_one(arch, shape, multi_pod=mp, rank=rank,
                              sharding_mode=mode,
                              num_micro_override=num_micro or None)
-        except NotImplementedError:
-            raise
         except Exception:
             rec = {"arch": arch, "shape": shape, "mesh": _mesh_name(mp),
                    "error": traceback.format_exc()}

@@ -16,8 +16,9 @@ An axis argument is an axis name or a tuple of names, e.g. ``("pod",
 (its first name outermost), so the 2×16×16 mesh's batch axes form one
 32-rank group.
 
-Every collective goes through a :class:`Mesh` method, which counts its
-calls, its operand bytes and its largest operand by ``(op, axis)`` in
+Every collective (all-reduce, all-gather, reduce-scatter, all-to-all) goes
+through a :class:`Mesh` method, which counts its calls, its operand bytes
+and its largest operand by ``(op, axis)`` in
 ``mesh.collectives``, ``mesh.collective_bytes`` and
 ``mesh.collective_largest`` (``reset_collectives`` clears them; an
 operand is this rank's input): the port's analogue of the reference's
@@ -104,6 +105,70 @@ class _SumOverAxis(torch.autograd.Function):
     def backward(ctx, g):
         return ctx.mesh.all_reduce(g.contiguous().clone(), ctx.axis), \
             None, None
+
+
+class _GatherSeq(torch.autograd.Function):
+    """All-gather of ``dim`` forward, reduce-scatter of the gradient
+    backward: the sequence-parallel input of a sublayer whose consumers on
+    each rank contribute a partial gradient."""
+
+    @staticmethod
+    def forward(ctx, x, mesh, axis, dim):
+        ctx.mesh, ctx.axis, ctx.dim = mesh, axis, dim
+        return mesh.all_gather(x, axis, dim=dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        return ctx.mesh.reduce_scatter(g, ctx.axis, dim=ctx.dim), None, \
+            None, None
+
+
+class _ScatterSeq(torch.autograd.Function):
+    """Reduce-scatter of ``dim`` forward, all-gather of the gradient
+    backward: a row-parallel output's partial sums, summed and left as
+    this rank's rows (the dual of :class:`_GatherSeq`)."""
+
+    @staticmethod
+    def forward(ctx, x, mesh, axis, dim):
+        ctx.mesh, ctx.axis, ctx.dim = mesh, axis, dim
+        return mesh.reduce_scatter(x, axis, dim=dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        return ctx.mesh.all_gather(g, ctx.axis, dim=ctx.dim), None, None, \
+            None
+
+
+class _GatherSlice(torch.autograd.Function):
+    """All-gather of ``dim`` forward, this rank's slice of the gradient
+    backward: the gathered tensor's consumers hold the whole gradient on
+    every rank."""
+
+    @staticmethod
+    def forward(ctx, x, mesh, axis, dim):
+        ctx.mesh, ctx.axis, ctx.dim = mesh, axis, dim
+        return mesh.all_gather(x, axis, dim=dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        n, c = ctx.mesh.shape[ctx.axis], ctx.mesh.coord(ctx.axis)
+        size = g.shape[ctx.dim] // n
+        return g.narrow(ctx.dim, c * size, size), None, None, None
+
+
+class _AllToAll(torch.autograd.Function):
+    """All-to-all over dimension 0 forward (block ``j`` to coordinate
+    ``j``), the reverse exchange backward (the same all-to-all: the
+    exchange is its own transpose)."""
+
+    @staticmethod
+    def forward(ctx, x, mesh, axis):
+        ctx.mesh, ctx.axis = mesh, axis
+        return mesh.all_to_all(x, axis)
+
+    @staticmethod
+    def backward(ctx, g):
+        return ctx.mesh.all_to_all(g, ctx.axis), None, None
 
 
 def _axis_key(axis):
@@ -234,6 +299,30 @@ class Mesh:
         dist.all_gather(parts, t, group=self.group(axis))
         return torch.cat(parts, dim=dim)
 
+    def reduce_scatter(self, t: torch.Tensor, axis,
+                       dim: int = 0) -> torch.Tensor:
+        """The sum of every rank's ``t`` over ``axis``, of which this rank
+        keeps block ``coord(axis)`` along ``dim``."""
+        self._count("reduce_scatter", axis, t)
+        n = self.shape[axis]
+        dim = dim % t.dim()
+        src = t.movedim(dim, 0).contiguous()
+        out = src.new_empty((src.shape[0] // n,) + tuple(src.shape[1:]))
+        # torch 2.13 marks this name deprecated in favour of
+        # reduce_scatter_single, which older releases lack
+        dist.reduce_scatter_tensor(out, src, group=self.group(axis))
+        return out.movedim(0, dim)
+
+    def all_to_all(self, t: torch.Tensor, axis) -> torch.Tensor:
+        """Block ``j`` of ``t``'s dimension 0 (``shape[axis]`` equal
+        blocks) to the rank at coordinate ``j``; returns the blocks this
+        rank received, block ``s`` from coordinate ``s``."""
+        self._count("all_to_all", axis, t)
+        t = t.contiguous()
+        out = torch.empty_like(t)
+        dist.all_to_all_single(out, t, group=self.group(axis))
+        return out
+
     def copy_to(self, x: torch.Tensor, axis: str) -> torch.Tensor:
         """Autograd: identity, gradient all-reduced over ``axis``."""
         return _CopyToAxis.apply(x, self, axis)
@@ -246,6 +335,25 @@ class Mesh:
         """Autograd: all-reduce (sum) over ``axis``, gradient all-reduced
         too."""
         return _SumOverAxis.apply(x, self, axis)
+
+    def gather_seq(self, x: torch.Tensor, axis, dim: int = 1,
+                   grad: str = "reduce_scatter") -> torch.Tensor:
+        """Autograd: all-gather of ``dim`` over ``axis``; the gradient is
+        reduce-scattered (``grad="reduce_scatter"``: each rank's consumers
+        give a partial gradient) or sliced (``"slice"``: they give the
+        whole one)."""
+        fn = _GatherSeq if grad == "reduce_scatter" else _GatherSlice
+        return fn.apply(x, self, axis, dim)
+
+    def scatter_seq(self, x: torch.Tensor, axis, dim: int = 1) -> torch.Tensor:
+        """Autograd: reduce-scatter of ``dim`` over ``axis``, gradient
+        all-gathered."""
+        return _ScatterSeq.apply(x, self, axis, dim)
+
+    def exchange(self, x: torch.Tensor, axis) -> torch.Tensor:
+        """Autograd: :meth:`all_to_all`, the gradient sent back the same
+        way."""
+        return _AllToAll.apply(x, self, axis)
 
 
 def make_production_mesh(*, multi_pod: bool = False) -> Mesh:

@@ -30,8 +30,9 @@ counters into the reference's schema: ``{"per_op": {op: bytes}, "counts":
 {op: n}, "total_bytes": n}`` over the five op names of the reference.  Its
 bytes are result bytes, as the reference sums result shapes: an all-reduce
 moves its operand's size, an all-gather its operand's size times the axis
-size.  The port issues no reduce-scatter, all-to-all or collective-permute,
-so those stay 0.
+size, a reduce-scatter its operand's size over the axis size, an
+all-to-all its operand's size.  The port issues no collective-permute, so
+that stays 0.
 """
 
 from __future__ import annotations
@@ -54,7 +55,8 @@ PEAKS = [("H200", 4.8e12, 989e12, 67e12, 495e12),
 
 COLLECTIVE_OPS = ("all-gather", "all-reduce", "reduce-scatter", "all-to-all",
                   "collective-permute")
-_PORT_OPS = {"all_gather": "all-gather", "all_reduce": "all-reduce"}
+_PORT_OPS = {"all_gather": "all-gather", "all_reduce": "all-reduce",
+             "reduce_scatter": "reduce-scatter", "all_to_all": "all-to-all"}
 
 
 def peaks_for(name: str):
@@ -84,8 +86,9 @@ def collective_bytes(mesh, counts=None, nbytes=None) -> dict:
     n = {k: 0 for k in COLLECTIVE_OPS}
     for (op, axis), c in counts.items():
         name = _PORT_OPS[op]
-        mult = axis_size(mesh.shape, axis) if op == "all_gather" else 1
-        per_op[name] += nbytes[(op, axis)] * mult
+        n_ax, b = axis_size(mesh.shape, axis), nbytes[(op, axis)]
+        per_op[name] += (b * n_ax if op == "all_gather" else
+                         b // n_ax if op == "reduce_scatter" else b)
         n[name] += c
     return {"per_op": per_op, "counts": n,
             "total_bytes": sum(per_op.values())}

@@ -63,7 +63,8 @@ def batch_specs(cfg: ModelConfig, batch: int, seq: int, *,
 
 
 def abstract_params(cfg: ModelConfig, tp=None):
-    """The base weights (``tp``: a tensor-parallel rank's pieces)."""
+    """The base weights (``tp``: a rank's pieces — its ``"model"`` cut and,
+    under FSDP or expert parallelism, its ``"data"`` cut)."""
     return T.init_params(cfg, device=META, generator=torch.Generator(),
                          tp=tp)
 
@@ -75,11 +76,12 @@ def abstract_lora(cfg: ModelConfig, rank: int):
 
 
 def abstract_cache(cfg: ModelConfig, params_abs, batch: int, max_len: int,
-                   tp=None):
+                   tp=None, cache_axis=None):
     """The decode cache; the vision / audio stand-ins are supplied
     abstractly, so a cross VLM's and an enc-dec's static caches are shaped,
     not computed.  ``tp``: ``params_abs`` are a rank's pieces and the cache
-    holds its heads."""
+    holds its heads; ``cache_axis``: its positions split over that axis
+    (``T.init_cache``)."""
     dt = T.torch_dtype(cfg.dtype)
     vision = audio = None
     if cfg.family == "vlm" and cfg.vision_mode == "cross":
@@ -89,7 +91,7 @@ def abstract_cache(cfg: ModelConfig, params_abs, batch: int, max_len: int,
         audio = torch.empty((batch, _audio_len(max_len), cfg.audio_dim),
                             dtype=dt, device=META)
     return T.init_cache(cfg, params_abs, batch, max_len, vision=vision,
-                        audio=audio, tp=tp)
+                        audio=audio, tp=tp, cache_axis=cache_axis)
 
 
 def supports_shape(cfg: ModelConfig, shape: InputShape) -> tuple[bool, str]:

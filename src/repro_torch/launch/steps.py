@@ -14,7 +14,10 @@ On a mesh with a ``"model"`` axis the steps take ``tp``, a
 this rank's pieces, the adapters whole (cut to what the rank reads by
 ``tp.local_lora``), and the loss, its gradients and the greedy tokens those
 of the whole model (``tp.reduce_lora_grads``, ``tp.argmax``), for every
-family.
+family.  The production steps (train, prefill, serve) also take ``mesh``:
+their batch is this rank's share of the reference's global batch, and
+they compute the reference's step on it (``make_train_step``'s row
+contract).
 
 The serving steps take the adapter bank scan-major, ``{spec: {"A": [L, G,
 r, in], "B": [L, G, out, r]}}`` (``AdapterStore.scan_stack``), the layout
@@ -33,18 +36,19 @@ from repro_torch.optim import OptimizerConfig, make_optimizer
 
 
 def loss_and_grad(cfg: ModelConfig, params, lora, batch, lora_scale: float,
-                  tp=None, remat: bool = False):
+                  tp=None, remat: bool = False, mask_count=None):
     """(loss, metrics, grads) of ``T.loss_fn`` w.r.t. the adapter leaves
     only; the base weights take no gradient.  With ``tp`` the gradients
     are the whole model's, on every rank of the axis.  ``remat``: the
-    blocks recompute their activations in the backward."""
+    blocks recompute their activations in the backward.  ``mask_count``:
+    as in ``T.loss_fn``."""
     names = [(n, m) for n in sorted(lora) for m in ("A", "B")]
     leaves = {n: {m: lora[n][m].detach().requires_grad_(True)
                   for m in ("A", "B")} for n in lora}
     with torch.enable_grad():
         fwd = leaves if tp is None else tp.local_lora(leaves)
         loss, metrics = T.loss_fn(cfg, params, fwd, batch, lora_scale, tp=tp,
-                                  remat=remat)
+                                  remat=remat, mask_count=mask_count)
         flat = torch.autograd.grad(loss, [leaves[n][m] for n, m in names])
     grads = {n: {} for n in lora}
     for (n, m), g in zip(names, flat):
@@ -54,16 +58,28 @@ def loss_and_grad(cfg: ModelConfig, params, lora, batch, lora_scale: float,
     return loss.detach(), {k: v.detach() for k, v in metrics.items()}, grads
 
 
-def _mean_over(mesh, axes, grads, metrics: dict) -> None:
-    """Average the adapter gradients and the metrics over the batch-sharded
-    ranks (``axes`` of ``mesh``), in place, in one all-reduce: the mean
-    over the global batch, which the reference's batch-sharded program
-    takes implicitly."""
+def _batch_tp(cfg: ModelConfig, tp, mesh):
+    """The step's plan when its batch is split over ``mesh``'s batch axes
+    (``tp.batched``; where the caller gave none, a plan that splits no
+    weight: the params are whole), or ``tp`` as it is without a mesh."""
+    if mesh is None:
+        return tp, None
+    from repro_torch.sharding import batch_axes
+    axes = batch_axes(mesh)
+    if tp is None:
+        from repro_torch.models.tensor_parallel import TensorParallel
+        tp = TensorParallel(cfg, mesh, axis=None)
+    return tp.batched(axes), axes
+
+
+def _sum_over(mesh, axes, grads, metrics: dict, keys) -> None:
+    """Sum the adapter gradients and the metrics ``keys`` over the
+    batch-sharded ranks (``axes`` of ``mesh``), in place, in one
+    all-reduce: each rank holds its share of the global batch's."""
     leaves = [grads[n][m] for n in sorted(grads) for m in ("A", "B")]
-    keys = sorted(metrics)
     flat = torch.cat([g.reshape(-1).float() for g in leaves]
                      + [metrics[k].reshape(-1).float() for k in keys])
-    flat = mesh.all_reduce(flat, axes) / mesh.shape[axes]
+    flat = mesh.all_reduce(flat, axes)
     at = 0
     for g in leaves:
         g.copy_(flat[at:at + g.numel()].view_as(g))
@@ -84,16 +100,26 @@ def make_train_step(cfg: ModelConfig, opt_cfg: OptimizerConfig, *,
     recomputes its activations in the backward.
 
     ``tp``: the base params are a tensor-parallel rank's pieces (the
-    adapter and its optimizer state stay whole).  ``mesh``: the batch is
-    this rank's rows of a global batch split over the mesh's batch axes
-    (``repro_torch.sharding.batch_axes``), and the gradient and the
-    metrics are averaged over them in one all-reduce before the update, so
-    every rank takes the same step."""
+    adapter and its optimizer state stay whole).
+
+    ``mesh``: the step computes the reference's step on the global batch,
+    split over the mesh's batch axes (``repro_torch.sharding.batch_axes``,
+    ``dp`` ranks).  The row contract: the rank at batch coordinate ``c``
+    holds its share of each of the reference's microbatches — of global
+    batch ``B`` and ``n`` microbatches, the global rows
+    ``repro_torch.sharding.global_rows(B, n, dp, c)``, in that order — so
+    that its local microbatch ``i`` is block ``c`` of the reference's
+    microbatch ``i``.  Each microbatch's loss and accuracy are divided by
+    the mask count of the whole reference microbatch, the MoE capacity,
+    queue places, drops and aux loss are the global batch's
+    (``tp.batched``), and the ranks' gradients, losses and accuracies are
+    summed (not averaged) in one all-reduce before the update, so every
+    rank takes the reference's step: over the batch axes, one all-reduce
+    of each microbatch's mask count and one of the gradients, plus the
+    MoE's."""
     _, update_fn = make_optimizer(opt_cfg)
-    axes = None
-    if mesh is not None:
-        from repro_torch.sharding import batch_axes
-        axes = batch_axes(mesh)
+    tp, axes = _batch_tp(cfg, tp, mesh)
+    dp = mesh.shape[axes] if axes else 1
 
     @torch.no_grad()
     def train_step(params, lora, opt_state, batch):
@@ -104,8 +130,11 @@ def make_train_step(cfg: ModelConfig, opt_cfg: OptimizerConfig, *,
         # same live state (the dry run traces two and scales to n)
         loss_sum, grads, msum = 0.0, None, None
         for mb in mbs:
+            count = None
+            if dp > 1:    # the reference microbatch's mask count
+                count = mesh.all_reduce(mb["loss_mask"].float().sum(), axes)
             loss, m, g = loss_and_grad(cfg, params, lora, mb, lora_scale,
-                                       tp=tp, remat=remat)
+                                       tp=tp, remat=remat, mask_count=count)
             loss_sum = loss_sum + loss
             msum = m if msum is None else {k: msum[k] + m[k] for k in m}
             grads = g if grads is None else {
@@ -116,7 +145,11 @@ def make_train_step(cfg: ModelConfig, opt_cfg: OptimizerConfig, *,
         metrics = {k: v / n for k, v in msum.items()}
         metrics["total_loss"] = loss_sum / n
         if axes:
-            _mean_over(mesh, axes, grads, metrics)
+            # aux is the global batch's on every rank already
+            _sum_over(mesh, axes, grads, metrics,
+                      ("loss", "acc") if dp > 1 else ())
+            if dp > 1:
+                metrics["total_loss"] = metrics["loss"] + metrics["aux"]
         lora_new, opt_new = update_fn(lora, grads, opt_state)
         return lora_new, opt_new, metrics
 
@@ -137,12 +170,15 @@ def make_eval_step(cfg: ModelConfig, *, lora_scale: float,
 
 
 def make_prefill_step(cfg: ModelConfig, *, lora_scale: float,
-                      tp=None) -> Callable:
+                      tp=None, mesh=None) -> Callable:
     """``(params, lora, batch) -> logits [B, V]`` (f32) of the last
     position of ``batch["tokens"]`` (with ``"image"`` / ``"audio"`` where
     the family takes them): the unembedding runs on that position only.
     With ``tp``, ``params`` are the rank's pieces, ``lora`` is whole and
-    the logits are the rank's vocabulary columns."""
+    the logits are the rank's vocabulary columns.  ``mesh``: the batch is
+    this rank's rows of the global batch (the MoE routes the global
+    batch), as in :func:`make_train_step`."""
+    tp, _ = _batch_tp(cfg, tp, mesh)
 
     @torch.no_grad()
     def prefill_step(params, lora, batch):
@@ -158,17 +194,23 @@ def make_prefill_step(cfg: ModelConfig, *, lora_scale: float,
 
 
 def make_serve_step(cfg: ModelConfig, *, lora_scale: float,
-                    tp=None) -> Callable:
+                    tp=None, mesh=None, cache_axis=None,
+                    score_axis=None) -> Callable:
     """``(params, lora, cache, tokens, pos, embeds=None) -> (logits [B, V],
     cache)``: one-token decode, one adapter for the batch; ``embeds``
     [B, 1, d] replaces the token embedding (the vision prefix streams
     through it).  With ``tp``, ``lora`` is the rank's local adapter and
-    the logits its vocabulary columns."""
+    the logits its vocabulary columns.  ``mesh``: the batch is this rank's
+    rows of the global batch (the MoE routes the global batch);
+    ``cache_axis``, ``score_axis``: as in
+    ``repro_torch.models.transformer.decode_step``."""
+    tp, _ = _batch_tp(cfg, tp, mesh)
 
     @torch.no_grad()
     def serve_step(params, lora, cache, tokens, pos, embeds=None):
         return T.decode_step(cfg, params, cache, tokens, pos, lora=lora,
-                             lora_scale=lora_scale, embeds=embeds, tp=tp)
+                             lora_scale=lora_scale, embeds=embeds, tp=tp,
+                             cache_axis=cache_axis, score_axis=score_axis)
 
     return serve_step
 
@@ -205,7 +247,9 @@ def make_greedy_generate(cfg: ModelConfig, *, lora_scale: float,
             xs = tp.embed(params["embed"], tokens[:, :cap_start + 1])
         n_prefix = 0
         if vision is not None and prefix:
-            pre = vision.to(xs.dtype) @ params["vision_proj"]
+            vp = params["vision_proj"] if tp is None else tp.full(
+                "", "vision_proj", params["vision_proj"])
+            pre = vision.to(xs.dtype) @ vp
             xs = torch.cat([pre, xs], dim=1)
             n_prefix = pre.shape[1]
         P = xs.shape[1]

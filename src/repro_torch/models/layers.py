@@ -150,8 +150,11 @@ def _pad_to(x: torch.Tensor, n: int, dim: int) -> torch.Tensor:
 def multihead_attention(q, k, v, *, causal: bool, window: int = 0,
                         softcap: float = 0.0, q_pos=None, k_pos=None,
                         pad_mask=None, chunked: bool | None = None,
-                        q_chunk: int = 512, kv_chunk: int = 1024):
-    """q: [B,Sq,H,D]; k,v: [B,Sk,KV,D] (GQA).  Returns [B,Sq,H,Dv].
+                        q_chunk: int = 512, kv_chunk: int = 1024,
+                        return_lse: bool = False):
+    """q: [B,Sq,H,D]; k,v: [B,Sk,KV,D] (GQA).  Returns [B,Sq,H,Dv]; with
+    ``return_lse`` (the naive path only) also the scores' log-sum-exp
+    ``[B, Sq, H]`` f32, for combining attention over split keys.
 
     ``chunked=None`` picks the online-softmax path when the score block
     would be large.  ``pad_mask``: [B, Sk], true = valid.  ``q_pos`` /
@@ -186,6 +189,10 @@ def multihead_attention(q, k, v, *, causal: bool, window: int = 0,
                 :, None, None, None, :]
         probs = torch.softmax(scores, dim=-1)
         out = torch.einsum("bkgqs,bskd->bqkgd", probs.to(v.dtype), v)
+        if return_lse:
+            lse = torch.logsumexp(scores, dim=-1)            # [B,KV,G,Sq]
+            return out.reshape(B, Sq, H, Dv), \
+                lse.permute(0, 3, 1, 2).reshape(B, Sq, H)
         return out.reshape(B, Sq, H, Dv)
 
     # ---- chunked online-softmax path --------------------------------------
@@ -342,7 +349,8 @@ def attention_decode_batch(params, x, cache, cfg: ModelConfig, *, kind: str,
                            pos, valid=None, lora=None,
                            lora_scale: float = 1.0, lora_idx=None,
                            lora_kernel: bool = False,
-                           chunked: bool | None = False, tp=None):
+                           chunked: bool | None = False, tp=None,
+                           cache_axis=None):
     """Multi-token, per-row-position decode — the serving hot path (one-token
     multi-adapter decode and chunked prefill share it).  ``tp``: as in
     :func:`attention_forward`; the cache then holds this rank's K/V heads.
@@ -355,6 +363,16 @@ def attention_decode_batch(params, x, cache, cfg: ModelConfig, *, kind: str,
     returned.  Caller invariants as in the reference: valid positions stay
     below the cache length; for ring caches C ≤ ring and, when C > 1, no
     valid position reaches the ring size.
+
+    ``cache_axis`` (a mesh axis of ``tp``'s mesh): the cache holds this
+    rank's block of ``Smax / m`` positions (ring slots, for a local
+    layer's ring) of the axis' ``m`` — on ``"model"`` (the ``seq``
+    placement) with every K/V head, on ``"data"`` (the long-context
+    fallback) with the rank's heads, one position a row a call (``C =
+    1``).  The new token's q / k / v are then gathered over the heads
+    (``"model"``), the rank that owns a position writes it, each rank attends over its positions, and the partial
+    outputs are combined over the axis (:meth:`TensorParallel.combine`)
+    before the rank's heads enter ``wo``.
 
     ``kind="cross_attn"``: ``cache`` is the static ``{"k","v": [B, P, KV,
     D]}`` of ``cross_kv`` (an optional ``"mask"`` [B, P]); the C queries
@@ -374,31 +392,56 @@ def attention_decode_batch(params, x, cache, cfg: ModelConfig, *, kind: str,
     q_pos = pos[:, None] + torch.arange(C, device=pos.device)    # [B, C]
     q = apply_rope(q, q_pos, cfg.rope_theta)
     k_new = apply_rope(k_new, q_pos, cfg.rope_theta)
-    Smax = cache["k"].shape[1]
+    heads = split and cache_axis == "model"
+    if heads:                     # the seq cache holds every head
+        q, k_new, v_new = (tp.all_heads(q), tp.all_heads(k_new, kv=True),
+                           tp.all_heads(v_new, kv=True))
+    if cache_axis is not None and C != 1:
+        raise ValueError("a sequence-split cache takes one position a row "
+                         f"a call (C = 1), got C = {C}")
+    m, c = (1, 0) if cache_axis is None else (tp.mesh.shape[cache_axis],
+                                              tp.mesh.coord(cache_axis))
+    S_loc = cache["k"].shape[1]
+    Smax = S_loc * m                                    # the whole length
     ring = bool(kind == "attn_local" and cfg.sliding_window
                 and Smax <= cfg.sliding_window)
     slots = torch.remainder(q_pos, Smax) if ring else q_pos.clamp(0, Smax - 1)
     rows = torch.arange(B, device=pos.device)[:, None].expand(B, C)
+    own = valid
+    if cache_axis is not None:    # the rank holding a slot writes it
+        mine = (slots >= c * S_loc) & (slots < (c + 1) * S_loc)
+        own = mine if valid is None else valid & mine
+        slots = (slots - c * S_loc).clamp(0, S_loc - 1)
 
-    _write_rows(cache["k"], rows, slots, k_new, valid)
-    _write_rows(cache["v"], rows, slots, v_new, valid)
+    _write_rows(cache["k"], rows, slots, k_new, own)
+    _write_rows(cache["v"], rows, slots, v_new, own)
 
     n_val = valid.sum(1) if valid is not None else torch.full_like(pos, C)
     cur = pos + n_val - 1                # last position actually written
+    t = c * S_loc + torch.arange(S_loc, device=pos.device)[None, :]
     if ring:
         # ring slot t holds the latest written position ≡ t (mod Smax);
         # anchoring on cur keeps masked tails advertising the old positions
-        t = torch.arange(Smax, device=pos.device)[None, :]
         k_pos = cur[:, None] - torch.remainder(cur[:, None] - t, Smax)
     else:
-        k_pos = torch.arange(Smax, device=pos.device).expand(B, Smax)
+        k_pos = t.expand(B, S_loc)
     window = cfg.sliding_window if kind == "attn_local" else 0
     ok = (k_pos >= 0) & (k_pos <= cur[:, None])
-    out = multihead_attention(q, cache["k"], cache["v"], causal=True,
-                              window=window, softcap=cfg.attn_logit_softcap,
-                              q_pos=q_pos, k_pos=k_pos, pad_mask=ok,
-                              chunked=chunked, q_chunk=max(C, 1),
-                              kv_chunk=min(512, Smax))
+    if cache_axis is None:
+        out = multihead_attention(q, cache["k"], cache["v"], causal=True,
+                                  window=window,
+                                  softcap=cfg.attn_logit_softcap,
+                                  q_pos=q_pos, k_pos=k_pos, pad_mask=ok,
+                                  chunked=chunked, q_chunk=max(C, 1),
+                                  kv_chunk=min(512, Smax))
+    else:
+        out, lse = multihead_attention(
+            q, cache["k"], cache["v"], causal=True, window=window,
+            softcap=cfg.attn_logit_softcap, q_pos=q_pos, k_pos=k_pos,
+            pad_mask=ok, chunked=False, return_lse=True)
+        out = tp.combine(out, lse, cache_axis)
+        if heads:
+            out = tp.own_heads(out)
     y = out.reshape(B, C, -1) @ params["wo"]
     return (tp.reduce(y) if split else y), cache
 
@@ -509,7 +552,8 @@ def mla_forward(params, x, cfg: ModelConfig, *, lora=None,
 
 def mla_decode_batch(params, x, cache, cfg: ModelConfig, *, pos, valid=None,
                      lora=None, lora_scale: float = 1.0, lora_idx=None,
-                     lora_kernel: bool = False, tp=None):
+                     lora_kernel: bool = False, tp=None, cache_axis=None,
+                     score_axis=None):
     """Absorbed-weight MLA decode over the compressed cache ``{"c_kv": [B,
     Smax, c], "k_rope": [B, Smax, rd]}`` at per-row positions ``pos`` [B]
     (``x`` [B, C, d]; ``valid`` [B, C] masks ragged chunk tails, whose cache
@@ -523,7 +567,17 @@ def mla_decode_batch(params, x, cache, cfg: ModelConfig, *, pos, valid=None,
     ``lora_kernel`` steers the q side only.  The reference's scalar-position
     ``mla_decode`` is this function with every row at one position.
     ``tp``: as in :func:`mla_forward` (the absorbed ``w_uk`` / ``w_uv``
-    are this rank's heads; the cache is whole)."""
+    are this rank's heads; the cache is whole).
+
+    ``cache_axis``: the cache holds this rank's ``Smax / m`` positions of
+    the axis (the ``seq`` placement on ``"model"``, the long-context
+    fallback on ``"data"``); ``score_axis`` (the reference's ``seq_axis``,
+    the ``scoreshard`` placement): the cache is whole and each rank scores
+    its ``Smax / m`` positions of it.  Either way the absorbed queries are
+    gathered over the heads (``"model"``), each rank's softmax over its
+    positions is combined over the axis (:meth:`TensorParallel.combine`,
+    on ``ctx_c`` ``[B, C, h, c]``), and each rank applies its heads'
+    ``w_uv``."""
     m, h = cfg.mla, _mla_heads(params, cfg)
     split = tp is not None and tp.mla
     if split:
@@ -537,11 +591,25 @@ def mla_decode_batch(params, x, cache, cfg: ModelConfig, *, pos, valid=None,
     c_new, kr_new = ckv_kr[..., :m.kv_lora_rank], ckv_kr[..., m.kv_lora_rank:]
     kr_new = apply_rope(kr_new[:, :, None, :], q_pos, cfg.rope_theta)[:, :, 0]
     c_kv, k_rope = cache["c_kv"], cache["k_rope"]
-    Smax = c_kv.shape[1]
+    if cache_axis is not None:    # the cache's split already splits scores
+        score_axis = None
+        if C != 1:
+            raise ValueError("a sequence-split cache takes one position a "
+                             f"row a call (C = 1), got C = {C}")
+    axis = cache_axis or score_axis
+    n_ax, co = (1, 0) if axis is None else (tp.mesh.shape[axis],
+                                            tp.mesh.coord(axis))
+    S_loc = c_kv.shape[1]
+    Smax = S_loc * n_ax if cache_axis is not None else S_loc
     slots = q_pos.clamp(0, Smax - 1)
     rows = torch.arange(B, device=pos.device)[:, None].expand(B, C)
-    _write_rows(c_kv, rows, slots, c_new, valid)
-    _write_rows(k_rope, rows, slots, kr_new, valid)
+    own = valid
+    if cache_axis is not None:    # the rank holding a position writes it
+        mine = (slots >= co * S_loc) & (slots < (co + 1) * S_loc)
+        own = mine if valid is None else valid & mine
+        slots = (slots - co * S_loc).clamp(0, S_loc - 1)
+    _write_rows(c_kv, rows, slots, c_new, own)
+    _write_rows(k_rope, rows, slots, kr_new, own)
 
     w = params["wkv_b"]
     entry = lora.get("wkv_b") if lora else None
@@ -557,15 +625,31 @@ def mla_decode_batch(params, x, cache, cfg: ModelConfig, *, pos, valid=None,
     w_uk, w_uv = w[..., :m.qk_nope_head_dim], w[..., m.qk_nope_head_dim:]
     lead = "b" if per_row else ""
     q_abs = torch.einsum(f"bshn,{lead}chn->bshc", q_nope.float(), w_uk)
+    q_rope = q_rope.float()
+    heads = split and axis == "model"
+    if heads:                     # every head scores this rank's positions
+        q_abs, q_rope = tp.all_heads(q_abs), tp.all_heads(q_rope)
+    t0 = 0
+    if score_axis is not None:    # this rank's positions of a whole cache
+        S_loc = Smax // n_ax
+        t0 = co * S_loc
+        c_kv, k_rope = c_kv.narrow(1, t0, S_loc), k_rope.narrow(1, t0, S_loc)
+    elif cache_axis is not None:
+        t0 = co * S_loc
     scale = 1.0 / math.sqrt(m.qk_nope_head_dim + m.qk_rope_head_dim)
     s = (torch.einsum("bshc,btc->bhst", q_abs, c_kv.float())
-         + torch.einsum("bshr,btr->bhst", q_rope.float(),
+         + torch.einsum("bshr,btr->bhst", q_rope,
                         k_rope.float())) * scale                    # [B,h,C,S]
-    ok = torch.arange(Smax, device=pos.device)[None, None, :] \
+    ok = t0 + torch.arange(S_loc, device=pos.device)[None, None, :] \
         <= q_pos[:, :, None]                                        # [B,C,S]
     s = torch.where(ok[:, None], s, NEG_INF)
     p = torch.softmax(s, dim=-1)
     ctx_c = torch.einsum("bhst,btc->bshc", p, c_kv.float())
+    if axis is not None:
+        lse = torch.logsumexp(s, dim=-1).permute(0, 2, 1)           # [B,C,h]
+        ctx_c = tp.combine(ctx_c, lse, axis)
+        if heads:
+            ctx_c = tp.own_heads(ctx_c)
     ctx_v = torch.einsum(f"bshc,{lead}chv->bshv", ctx_c, w_uv)
     y = ctx_v.reshape(B, C, -1).to(x.dtype) @ params["wo"]
     return (tp.reduce(y) if split else y), cache
@@ -653,10 +737,119 @@ def moe_route(router: torch.Tensor, xf: torch.Tensor, cfg: ModelConfig):
     return probs, gates, ids, pos, pos < moe_capacity(cfg, T)
 
 
-def moe_forward(params, x, cfg: ModelConfig, tp=None):
+def moe_places(ids: torch.Tensor, pos: torch.Tensor, cfg: ModelConfig,
+               tp=None):
+    """The routed picks' places over the global batch: ``(places [T, K],
+    kept [T, K], C, counts)``.  Without a batch-sharded ``tp`` (``tp.dp``
+    of 1) the places are ``pos``, ``C`` is ``moe_capacity(T)`` and
+    ``counts`` is ``None``.  Otherwise this rank's ``T`` tokens are its
+    block of the global ``T · dp`` (in batch-coordinate order): one
+    all-gather of each rank's picks per expert (``counts`` ``[dp, E]``)
+    offsets a pick's place by its expert's picks on the ranks before this
+    one, ``C`` is ``moe_capacity(T · dp)``, and the drops are the
+    reference's on the whole batch."""
+    T = ids.shape[0]
+    if tp is None or tp.dp == 1:
+        C = moe_capacity(cfg, T)
+        return pos, pos < C, C, None
+    E = cfg.moe.num_experts
+    flat = ids.reshape(-1)
+    cnt = torch.zeros(E, dtype=flat.dtype, device=flat.device).scatter_add_(
+        0, flat, torch.ones_like(flat))
+    counts = tp.mesh.all_gather(cnt[None], tp.batch_axes)           # [dp, E]
+    off = counts[:tp.mesh.coord(tp.batch_axes)].sum(0)
+    places = pos + off[ids]
+    C = moe_capacity(cfg, T * tp.dp)
+    return places, places < C, C, counts
+
+
+def _experts(params, buf: torch.Tensor) -> torch.Tensor:
+    """Every expert's SwiGLU over its rows: ``buf [E, R, d]`` -> ``[E, R,
+    d]``."""
+    h = F.silu(torch.bmm(buf, params["w1"])) * torch.bmm(buf, params["w3"])
+    return torch.bmm(h, params["w2"])
+
+
+def _moe_tiles(params, xf: torch.Tensor, ids, pos, kept):
+    """The experts over this rank's kept picks alone, for a batch-sharded
+    step: under the global capacity a rank may keep up to ``min(C, T)``
+    picks of one expert, but all its experts together keep at most ``T·K``.
+    The kept picks lie in expert order in tiles of ``Q = ceil(T·K / 4E)``
+    rows, each tile one expert's, in at most ``min(5E, T·K)`` tiles
+    (``Σ ceil(n_e / Q) <= T·K / Q + E``), and every tile runs its expert's
+    SwiGLU in one ``bmm`` over the tiles' gathered weights: at most 1.25
+    ``T·K`` rows, where ``[E, min(C, T)]`` buffers hold up to ``dp``
+    times the rank's share.  Returns ``(out [rows, d], row [T, K])``, a
+    pick's row of ``out`` (a dropped pick's: row 0)."""
+    T, d = xf.shape
+    E, K = params["w1"].shape[0], ids.shape[1]
+    Q = max(-(-T * K // (4 * E)), 1)
+    n = min(5 * E, T * K)                                   # tiles
+    flat = ids.reshape(-1)
+    n_e = torch.zeros(E, dtype=flat.dtype, device=flat.device).scatter_add_(
+        0, flat, kept.reshape(-1).to(flat.dtype))
+    tiles = (n_e + Q - 1) // Q
+    ends = tiles.cumsum(0)
+    row = torch.where(kept, (ends - tiles)[ids] * Q + pos, n * Q)
+    buf = xf.new_zeros((n * Q + 1, d))
+    buf[row.reshape(-1)] = xf.repeat_interleave(K, dim=0)
+    owner = torch.searchsorted(ends, torch.arange(n, device=xf.device),
+                               right=True).clamp(max=E - 1)
+    w = {k: params[k][owner] for k in ("w1", "w3", "w2")}
+    out = _experts(w, buf[:n * Q].reshape(n, Q, d)).reshape(n * Q, d)
+    return out, torch.where(kept, row, 0)
+
+
+def _moe_exchange(params, send: torch.Tensor, counts, C: int, tp):
+    """Expert-parallel experts: ``send [E, R, d]`` holds this rank's kept
+    picks of each expert at their places in its own queue (row ``i`` of
+    expert ``e``: its ``i``-th pick of ``e``).  The rows of the ``E /
+    data`` experts each ``"data"`` rank holds go to it in one all-to-all;
+    the owner lays every source's rows at their global places (the
+    source's offset, from ``counts``, plus ``i``) into the reference's
+    ``[E / data, C, d]`` buffer, runs its experts once over it, and sends
+    each source's rows back the same way.  Fixed shapes: every source
+    sends its ``R = min(C, T)`` rows an expert, the most it can keep (an
+    all-to-all that sends its counts first would move only the kept
+    rows).  ``counts`` ``None`` (the batch not split over ``"data"``):
+    every source sends the same ``C`` rows an expert, and the owner runs
+    source 0's and returns those results to every source.  Returns
+    ``[E, R, d]`` in ``send``'s layout."""
+    mesh = tp.mesh
+    E, R, d = send.shape
+    De = mesh.shape["data"]
+    El, cd = E // De, mesh.coord("data")
+    recv = mesh.exchange(send.reshape(De, El * R, d), "data")  # [src, El*R, d]
+    i = torch.arange(R, device=send.device)[None, None, :]
+    experts = torch.arange(El, device=send.device)[None, :, None]
+    if counts is None:
+        # the batch is not split over "data": every source holds the same
+        # picks (R = C rows, place = i), so the owner lays out source 0's
+        # and sends every source the rows of that one layout
+        row = i.expand(De, El, R)
+        dst = torch.where(row < C, experts * C + row, El * C).reshape(-1)
+        put = torch.where(torch.arange(De * El * R, device=send.device)
+                          < El * R, dst, El * C)
+    else:
+        base = mesh.coord(tp.batch_axes) - cd       # this pod's first source
+        starts = counts.cumsum(0) - counts                     # [dp, E]
+        mine = slice(cd * El, (cd + 1) * El)
+        src = slice(base, base + De)
+        row = starts[src, mine][:, :, None] + i                # [De, El, R]
+        ok = (i < counts[src, mine][:, :, None]) & (row < C)
+        dst = put = torch.where(ok, experts * C + row, El * C).reshape(-1)
+    buf = send.new_zeros((El * C + 1, d))
+    buf[put] = recv.reshape(-1, d)
+    out = _experts(params, buf[:El * C].reshape(El, C, d)).reshape(El * C, d)
+    out = torch.cat([out, out.new_zeros((1, d))])
+    back = mesh.exchange(out[dst].reshape(De, El * R, d), "data")
+    return back.reshape(E, R, d)
+
+
+def moe_forward(params, x, cfg: ModelConfig, tp=None, reduce: bool = True):
     """GShard-style capacity dispatch without a [T, E, C] one-hot: picks
-    are copied into ``[E, C, d]`` expert buffers, every expert runs its
-    SwiGLU over its C rows, and each token gathers back its K outputs.
+    are copied into expert buffers, every expert runs its SwiGLU over its
+    rows, and each token gathers back its K outputs.
     Returns ``(y [B, S, d], aux)`` with the Switch load-balance loss
     ``aux``.
 
@@ -669,36 +862,59 @@ def moe_forward(params, x, cfg: ModelConfig, tp=None):
     ``w2`` its rows.  The router runs whole on every rank, so every rank
     routes, places and drops alike; each rank combines its partial
     outputs in the same order, and the routed and shared partial sums
-    pass one all-reduce.  ``aux`` is the same on every rank."""
+    pass one all-reduce (``reduce=False`` leaves them partial, for a
+    sequence-parallel caller that reduce-scatters them).  ``aux`` is the
+    same on every rank.
+
+    A batch-sharded ``tp`` (``tp.batched``): capacity, places and drops
+    are those of the global batch (:func:`moe_places`), and ``aux``'s
+    means span it (all-reduces over the batch axes; its gradient reaches
+    each rank's own tokens).  Each rank's buffer holds its own picks at
+    their places in its own queue: compacted into tiles of one expert
+    each (:func:`_moe_tiles`), or under ``tp.ep`` ``R = min(C, T)`` rows an
+    expert, the buffers sent to the experts' owners and back
+    (:func:`_moe_exchange`).  Unsharded, the buffers are ``[E, C, d]``."""
     mo = cfg.moe
     split = tp is not None and tp.moe
     B, S, d = x.shape
     T = B * S
     E, K = mo.num_experts, mo.experts_per_token
-    C = moe_capacity(cfg, T)
     xf = x.reshape(T, d)
-    probs, gates, ids, pos, kept = moe_route(params["router"], xf, cfg)
+    probs, gates, ids, pos, _ = moe_route(params["router"], xf, cfg)
+    _, kept, C, counts = moe_places(ids, pos, cfg, tp)
     one_hot = F.one_hot(ids[:, 0], E).float()
-    aux = mo.aux_loss_coef * E * (probs.mean(0) * one_hot.mean(0)).sum()
+    if counts is None:
+        aux = mo.aux_loss_coef * E * (probs.mean(0) * one_hot.mean(0)).sum()
+    else:
+        n = T * tp.dp
+        me = tp.mesh.reduce_from(probs.sum(0), tp.batch_axes) / n
+        ce = tp.mesh.all_reduce(one_hot.sum(0), tp.batch_axes) / n
+        aux = mo.aux_loss_coef * E * (me * ce).sum()
 
     if split:
         # the experts' inputs and the gates meet this rank's columns: both
         # take the ranks' partial gradients
         xf, gates = tp.copy(xf), tp.copy(gates)
-    # dispatch: kept picks to their (expert, place) row, dropped ones to a
-    # spare row that is cut off
-    slot = torch.where(kept, ids * C + pos, E * C).reshape(-1)
-    buf = x.new_zeros((E * C + 1, d))
-    buf[slot] = xf.repeat_interleave(K, dim=0)
-    buf = buf[:E * C].reshape(E, C, d)
-    h = F.silu(torch.bmm(buf, params["w1"])) * torch.bmm(buf, params["w3"])
-    out = torch.bmm(h, params["w2"]).reshape(E * C, d)               # [E*C, d]
+    if counts is not None and not (tp is not None and tp.ep):
+        out, row = _moe_tiles(params, xf, ids, pos, kept)
+    else:
+        # dispatch: kept picks to their (expert, place) row, dropped ones to
+        # a spare row that is cut off
+        R = C if counts is None else min(C, T)
+        slot = torch.where(kept, ids * R + pos, E * R).reshape(-1)
+        buf = x.new_zeros((E * R + 1, d))
+        buf[slot] = xf.repeat_interleave(K, dim=0)
+        buf = buf[:E * R].reshape(E, R, d)
+        if tp is not None and tp.ep:
+            out = _moe_exchange(params, buf, counts, C, tp).reshape(E * R, d)
+        else:
+            out = _experts(params, buf).reshape(E * R, d)           # [E*R, d]
+        row = ids * R + pos.clamp(max=R - 1)
 
     # combine, in ascending expert order per token
     rank = ids.argsort(dim=-1)
     rows = torch.arange(T, device=x.device)[:, None]
-    e_sorted, p_sorted = ids[rows, rank], pos[rows, rank]
-    y_k = (out[e_sorted * C + p_sorted.clamp(max=C - 1)]
+    y_k = (out[row[rows, rank]]
            * kept[rows, rank][..., None].to(x.dtype)
            * gates[rows, rank][..., None].to(x.dtype))               # [T,K,d]
     y = y_k[:, 0]
@@ -707,7 +923,7 @@ def moe_forward(params, x, cfg: ModelConfig, tp=None):
     if "shared" in params:
         y = y + _swiglu(params["shared"], xf)
     y = y.reshape(B, S, d)
-    return (tp.reduce(y) if split else y), aux
+    return (tp.reduce(y) if split and reduce else y), aux
 
 
 # ---------------------------------------------------------------------------
@@ -934,5 +1150,5 @@ __all__ = ["NEG_INF", "apply_rope", "attention_decode_batch",
            "attention_forward", "cross_kv", "init_attention", "init_mamba", "init_mla",
            "init_mlp", "init_moe", "mamba_decode", "mamba_forward",
            "mla_decode_batch", "mla_forward", "mlp_forward", "moe_capacity",
-           "moe_forward", "moe_route", "multihead_attention", "normal",
+           "moe_forward", "moe_places", "moe_route", "multihead_attention", "normal",
            "rms_norm", "ssd_chunked"]

@@ -107,15 +107,16 @@ def init_params(cfg: ModelConfig, *, seed: int = 0,
     params["blocks"] = {f"s{i}": cut(_init_sublayer(cfg, kind, i, g))
                         for i, kind in enumerate(cfg.pattern)}
     if cfg.family == "vlm" and cfg.vision_mode == "prefix":
-        params["vision_proj"] = L.normal((cfg.vision_dim, d),
-                                         cfg.vision_dim ** -0.5, **g)
+        params.update(cut({"vision_proj": L.normal(
+            (cfg.vision_dim, d), cfg.vision_dim ** -0.5, **g)}))
     if cfg.family == "encdec":
-        params["encoder"] = {
+        params["encoder"] = cut({"encoder": {
             "in_proj": L.normal((cfg.audio_dim, d), cfg.audio_dim ** -0.5,
                                 **g),
-            "final_ln": torch.ones((d,), device=device, dtype=dt),
-            "blocks": {"s0": cut(_init_sublayer(cfg, "attn", 0, g,
-                                                n=cfg.encoder_layers))}}
+            "final_ln": torch.ones((d,), device=device, dtype=dt)}}
+        )["encoder"]
+        params["encoder"]["blocks"] = {"s0": cut(_init_sublayer(
+            cfg, "attn", 0, g, n=cfg.encoder_layers))}
         # the decoder's ungated cross-attention over the encoder output
         for sp in params["blocks"].values():
             sp["lnx"] = torch.ones((cfg.num_blocks, d), device=device,
@@ -204,13 +205,12 @@ def _fold_mamba(mp: dict, lo: dict, lora_scale: float) -> dict:
 def _feed_forward(cfg: ModelConfig, bp: dict, x, tp=None):
     """The sublayer's residual feed-forward (MoE or SwiGLU, if any):
     returns (x, aux)."""
-    if "moe" in bp:
-        h2 = L.rms_norm(x, bp["ln2"], cfg.norm_eps)
-        y, aux = L.moe_forward(bp["moe"], h2, cfg, tp)
-        return x + y, aux
-    if "ffn" in bp:
-        h2 = L.rms_norm(x, bp["ln2"], cfg.norm_eps)
-        x = x + L.mlp_forward(bp["ffn"], h2, tp)
+    for key in ("moe", "ffn"):
+        if key in bp:
+            y, aux = _piece(cfg, None, key,
+                            L.rms_norm(x, bp["ln2"], cfg.norm_eps), bp[key],
+                            {}, tp=tp)
+            return x + y, aux
     return x, None
 
 
@@ -234,8 +234,13 @@ def _run_blocks(cfg: ModelConfig, blocks: Tree, lora: Tree | None, x, *,
     if isinstance(x, list):
         x = x.pop()
     lora = {k: v for k, v in (lora or {}).items() if k.startswith("s")}
-    if enc_out is not None and tp is not None and tp.attn:
+    if enc_out is not None and tp is not None and (tp.attn or tp.sp):
         enc_out = tp.copy(enc_out)     # its gradient: the ranks' partials
+    if tp is not None and tp.sp:
+        return _run_blocks_sp(cfg, blocks, lora, x, lora_scale=lora_scale,
+                              positions=positions, pad_mask=pad_mask,
+                              vision=vision, enc_out=enc_out,
+                              enc_mask=enc_mask, tp=tp, remat=remat)
     aux_tot = torch.zeros((), dtype=torch.float32, device=x.device)
     block = lambda x, bp, lt: _block(cfg, bp, lt, x, lora_scale=lora_scale,
                                      positions=positions, pad_mask=pad_mask,
@@ -257,42 +262,140 @@ def _run_blocks(cfg: ModelConfig, blocks: Tree, lora: Tree | None, x, *,
 
 def _block(cfg: ModelConfig, bp: Tree, lt: Tree, x, *, lora_scale: float,
            positions, pad_mask, vision, enc_out, enc_mask, tp):
-    """One block of :func:`_run_blocks`: returns (x, its MoE aux, f32)."""
+    """One block of :func:`_run_blocks`: returns (x, its MoE aux, f32).
+    Under FSDP (``tp.fsdp``) each piece's weights are gathered here, so
+    that a remat recompute gathers them again and nothing outlives the
+    block."""
+    ctx = dict(lora_scale=lora_scale, positions=positions, pad_mask=pad_mask,
+               vision=vision, enc_out=enc_out, enc_mask=enc_mask, tp=tp)
     aux_l = torch.zeros((), dtype=torch.float32, device=x.device)
     for i, kind in enumerate(cfg.pattern):
         pre, sp = f"s{i}", bp[f"s{i}"]
-        h = L.rms_norm(x, sp["ln1"], cfg.norm_eps)
-        if "mla" in sp:
-            y = L.mla_forward(sp["mla"], h, cfg,
-                              lora=_sub_lora(lt, f"{pre}.mla"),
-                              lora_scale=lora_scale, positions=positions,
-                              pad_mask=pad_mask, tp=tp)
-        elif "mamba" in sp:
-            mp = _fold_mamba(sp["mamba"], _sub_lora(lt, f"{pre}.mamba"),
-                             lora_scale)
-            y = L.mamba_forward(mp, h, cfg, tp)
-        elif "cross" in sp:
-            y = L.attention_forward(
-                sp["cross"], h, cfg, kind="cross_attn",
-                lora=_sub_lora(lt, f"{pre}.cross"), lora_scale=lora_scale,
-                kv_src=vision, tp=tp)
-        else:
-            y = L.attention_forward(
-                sp["attn"], h, cfg, kind=kind,
-                lora=_sub_lora(lt, f"{pre}.attn"), lora_scale=lora_scale,
-                positions=positions, pad_mask=pad_mask, tp=tp)
-        x = x + y
-        if "dec_cross" in sp:
-            hx = L.rms_norm(x, sp["lnx"], cfg.norm_eps)
-            x = x + L.attention_forward(
-                sp["dec_cross"], hx, cfg, kind="cross_attn",
-                lora=_sub_lora(lt, f"{pre}.dec_cross"),
-                lora_scale=lora_scale, kv_src=enc_out, pad_mask=enc_mask,
-                tp=tp)
-        x, aux = _feed_forward(cfg, sp, x, tp)
-        if aux is not None:
-            aux_l = aux_l + aux
+        for key, norm in _pieces(sp):
+            p = sp[key] if tp is None else tp.gather(sp[key], key)
+            y, aux = _piece(cfg, kind, key,
+                            L.rms_norm(x, sp[norm], cfg.norm_eps), p,
+                            _sub_lora(lt, f"{pre}.{key}"), **ctx)
+            x = x + y
+            if aux is not None:
+                aux_l = aux_l + aux
     return x, aux_l
+
+
+def _pieces(sp: dict) -> list:
+    """The residual pieces of one pattern sublayer, in order — the mixer,
+    an enc-dec stack's cross layer and the feed-forward —, each as ``(key,
+    norm)``: its params' key and its norm's key."""
+    mixer = next((k for k in ("mla", "mamba", "cross") if k in sp), "attn")
+    out = [(mixer, "ln1")]
+    if "dec_cross" in sp:
+        out.append(("dec_cross", "lnx"))
+    ffn = next((k for k in ("moe", "ffn") if k in sp), None)
+    if ffn is not None:
+        out.append((ffn, "ln2"))
+    return out
+
+
+# piece -> the plan's flag that splits it
+_SPLIT_BY = {"mla": "mla", "mamba": "mamba", "cross": "attn", "attn": "attn",
+             "dec_cross": "attn", "ffn": "mlp"}
+
+
+def _piece(cfg: ModelConfig, kind, key: str, h, p, lo, *, lora_scale=1.0,
+           positions=None, pad_mask=None, vision=None, enc_out=None,
+           enc_mask=None, tp=None, sp: bool = False):
+    """One residual piece on its normed input ``h``, with its params ``p``
+    (whole over ``"data"``) and adapters ``lo``: returns (y, aux), ``aux``
+    the MoE's or ``None``.  ``sp``: the piece runs between the sequence
+    parallel collectives, so its split products run under ``tp.inner`` and
+    its output is left as the ranks' partial sums."""
+    sub = tp.inner if sp else tp
+    if key == "moe":
+        return L.moe_forward(p, h, cfg, tp, reduce=not sp)
+    if key == "ffn":
+        return L.mlp_forward(p, h, sub), None
+    if key == "mla":
+        return L.mla_forward(p, h, cfg, lora=lo, lora_scale=lora_scale,
+                             positions=positions, pad_mask=pad_mask,
+                             tp=sub), None
+    if key == "mamba":
+        return L.mamba_forward(_fold_mamba(p, lo, lora_scale), h, cfg,
+                               sub), None
+    if key in ("cross", "dec_cross"):
+        return L.attention_forward(
+            p, h, cfg, kind="cross_attn", lora=lo, lora_scale=lora_scale,
+            kv_src=vision if key == "cross" else enc_out,
+            pad_mask=None if key == "cross" else enc_mask, tp=sub), None
+    return L.attention_forward(p, h, cfg, kind=kind, lora=lo,
+                               lora_scale=lora_scale, positions=positions,
+                               pad_mask=pad_mask, tp=sub), None
+
+
+def _sp_piece(cfg: ModelConfig, kind: str, key: str, moe: bool, x, p, ln,
+              lo, **ctx):
+    """One residual piece under sequence parallelism, up to its output
+    before the reduce-scatter: ``x`` this rank's rows, ``p`` the piece's
+    params (gathered here under FSDP, so a remat recompute gathers them
+    again), ``ln`` its norm.  The MoE's router and gates run on every
+    rank, so its gathered input's gradient is whole for each rank's own
+    rows and is sliced, not reduce-scattered.  Returns (y, aux): ``y``
+    ``[B, S, d]`` whole or the ranks' partial sums."""
+    tp = ctx["tp"]
+    h = tp.sp_gather(L.rms_norm(x, ln, cfg.norm_eps),
+                     grad="slice" if moe else "reduce_scatter")
+    return _piece(cfg, kind, key, h, tp.gather(p, key), lo, sp=True, **ctx)
+
+
+def _run_blocks_sp(cfg: ModelConfig, blocks: Tree, lora: dict, x, *,
+                   lora_scale: float, positions, pad_mask, vision, enc_out,
+                   enc_mask, tp, remat: bool):
+    """:func:`_run_blocks` under sequence parallelism (the Megatron
+    pattern over ``tp.axis``): the residual stream is this rank's
+    ``[B, S/n, d]`` rows; norms and residual adds run on them; each
+    piece's input is all-gathered over the sequence (its gradient
+    reduce-scattered) and a split piece's row-parallel output
+    reduce-scattered (its gradient all-gathered); a whole piece (Mamba's
+    scan, an unsplit attention) runs on the gathered input and keeps its
+    rows.  ``remat``: each piece up to its output runs under
+    ``torch.utils.checkpoint``, so the recompute gathers its input (and
+    its FSDP weights) again while the reduce-scatter, outside, runs once.
+    Returns the whole ``[B, S, d]`` (gathered; its gradient sliced) and
+    the aux losses."""
+    tp.sp_check(x.shape[1])
+    x = tp.sp_rows(x)
+    aux_tot = torch.zeros((), dtype=torch.float32, device=x.device)
+    ctx = dict(lora_scale=lora_scale, positions=positions, pad_mask=pad_mask,
+               vision=vision, enc_out=enc_out, enc_mask=enc_mask, tp=tp)
+    if remat and torch.is_grad_enabled():
+        from torch.utils.checkpoint import checkpoint
+        run = lambda fn, *a: checkpoint(fn, *a, use_reentrant=False,
+                                        preserve_rng_state=False)
+    else:
+        run = lambda fn, *a: fn(*a)
+    for l in range(cfg.num_blocks):
+        bp, lt = _layer(blocks, l), _layer(lora, l)
+        aux_l = torch.zeros((), dtype=torch.float32, device=x.device)
+        for i, kind in enumerate(cfg.pattern):
+            pre, sp = f"s{i}", bp[f"s{i}"]
+            for key, norm in _pieces(sp):
+                moe = key == "moe"
+                fn = (lambda x, p, ln, lo, kind=kind, key=key, moe=moe:
+                      _sp_piece(cfg, kind, key, moe, x, p, ln, lo, **ctx))
+                y, aux = run(fn, x, sp[key], sp[norm],
+                             _sub_lora(lt, f"{pre}.{key}"))
+                # a split piece's (the experts', too) row-parallel output
+                # is reduce-scattered; a whole piece keeps its rows
+                if tp.moe if moe else getattr(tp, _SPLIT_BY[key]):
+                    y = tp.sp_scatter(y)
+                else:
+                    y = tp.sp_rows(y)
+                x = x + y
+                if aux is not None:
+                    aux_l = aux_l + aux
+                del y, aux
+        aux_tot = aux_tot + aux_l
+        del aux_l
+    return tp.sp_gather(x, grad="slice"), aux_tot
 
 
 def encode(cfg: ModelConfig, params: Tree, audio, lora=None,
@@ -304,13 +407,17 @@ def encode(cfg: ModelConfig, params: Tree, audio, lora=None,
     ``tp``: the layers' attention and MLP run the rank's pieces; the
     frontend ``in_proj`` is whole, and so is the output."""
     enc = params["encoder"]
-    x = audio.to(enc["in_proj"].dtype) @ enc["in_proj"]
+    in_proj = enc["in_proj"] if tp is None else tp.full("encoder", "in_proj",
+                                                        enc["in_proj"])
+    x = audio.to(in_proj.dtype) @ in_proj
     lora = {k[len("enc."):]: v for k, v in (lora or {}).items()
             if k.startswith("enc.")}
     S = x.shape[1]
     pos = torch.arange(S, device=x.device)
     for l in range(cfg.encoder_layers):
         bp = _layer(enc["blocks"]["s0"], l)
+        if tp is not None:
+            bp = tp.gather(bp, "s0")
         lt = _sub_lora(_layer(lora, l), "attn")
         hn = L.rms_norm(x, bp["ln1"], cfg.norm_eps)
         split = tp is not None and tp.attn
@@ -350,7 +457,9 @@ def forward(cfg: ModelConfig, params: Tree, tokens, *, lora=None,
     n_prefix = 0
     if cfg.family == "vlm" and cfg.vision_mode == "prefix" \
             and vision is not None:
-        pre = vision.to(x.dtype) @ params["vision_proj"]        # [B, P, d]
+        vp = params["vision_proj"] if tp is None else tp.full(
+            "", "vision_proj", params["vision_proj"])
+        pre = vision.to(x.dtype) @ vp                           # [B, P, d]
         x = torch.cat([pre, x], dim=1)
         n_prefix = pre.shape[1]
         positions = torch.arange(S + n_prefix, device=x.device)
@@ -382,14 +491,22 @@ def forward(cfg: ModelConfig, params: Tree, tokens, *, lora=None,
 
 
 def loss_fn(cfg: ModelConfig, params: Tree, lora: Tree | None, batch: dict,
-            lora_scale: float = 1.0, tp=None, remat: bool = False):
+            lora_scale: float = 1.0, tp=None, remat: bool = False,
+            mask_count=None):
     """Masked next-token cross-entropy plus the MoE aux loss.  ``batch``:
     tokens, labels, loss_mask, optional image and image_mask (a zero
     ``image_mask`` row zeroes that example's vision input: the
     missing-modality path) and audio (enc-dec).  Returns (loss + aux,
     {"loss", "aux", "acc"}), all 0-d f32 tensors.  ``tp``: as in
     :func:`forward`; the log-softmax and the argmax then span every rank's
-    vocabulary columns.  ``remat``: as in :func:`forward`."""
+    vocabulary columns.  ``remat``: as in :func:`forward`.
+
+    ``mask_count``: the mask count that divides ``loss`` and ``acc``
+    (default: ``batch``'s own).  A batch-sharded step passes the whole
+    reference batch's, so that with this rank's rows of it ``loss`` and
+    ``acc`` are this rank's share of the global values (their sum over the
+    ranks); with a batch-sharded ``tp`` (``tp.batched``) ``aux`` is the
+    global batch's (:func:`repro_torch.models.layers.moe_forward`)."""
     vision = batch.get("image")
     if vision is not None and "image_mask" in batch:
         vision = (vision * batch["image_mask"][:, None, None]).to(vision.dtype)
@@ -405,7 +522,8 @@ def loss_fn(cfg: ModelConfig, params: Tree, lora: Tree | None, batch: dict,
     else:
         ll, hit = tp.log_prob(logits, labels)
     mask = batch["loss_mask"].float()
-    denom = torch.clamp(mask.sum(), min=1.0)
+    denom = torch.clamp(mask.sum() if mask_count is None else mask_count,
+                        min=1.0)
     loss = -(ll * mask).sum() / denom
     acc = (hit * mask).sum() / denom
     return loss + aux, {"loss": loss, "aux": aux, "acc": acc}
@@ -415,10 +533,12 @@ def loss_fn(cfg: ModelConfig, params: Tree, lora: Tree | None, batch: dict,
 # decode
 # ---------------------------------------------------------------------------
 
-def _static_kv(cfg: ModelConfig, stacked: Tree, src, lora, lora_scale):
+def _static_kv(cfg: ModelConfig, stacked: Tree, src, lora, lora_scale,
+               tp=None, parent: str = "cross"):
     """A cross sublayer's static cache ``{"k","v": [n, B, P, KV, D]}``
     from ``src``, layer by layer, with ``lora`` (leaves [n, ...])."""
-    ks, vs = zip(*(L.cross_kv(_layer(stacked, l), src, cfg,
+    gather = (lambda p: p) if tp is None else (lambda p: tp.gather(p, parent))
+    ks, vs = zip(*(L.cross_kv(gather(_layer(stacked, l)), src, cfg,
                               _layer(lora, l), lora_scale)
                    for l in range(cfg.num_blocks)))
     return {"k": torch.stack(ks), "v": torch.stack(vs)}
@@ -426,7 +546,7 @@ def _static_kv(cfg: ModelConfig, stacked: Tree, src, lora, lora_scale):
 
 def init_cache(cfg: ModelConfig, params: Tree, batch: int, max_len: int, *,
                vision=None, audio=None, lora=None,
-               lora_scale: float = 1.0, tp=None) -> Tree:
+               lora_scale: float = 1.0, tp=None, cache_axis=None) -> Tree:
     """Per-sublayer decode state, stacked over blocks, on the device and in
     the dtype of ``params["embed"]``: attention K/V ``{"k","v": [n, batch,
     S, KV, D]}`` (local layers hold a ring of ``min(max_len,
@@ -445,15 +565,31 @@ def init_cache(cfg: ModelConfig, params: Tree, batch: int, max_len: int, *,
     ``tp``: ``params`` and ``lora`` are a tensor-parallel rank's pieces
     (``lora`` through ``tp.local_lora``), and every head count and width
     comes from the weights: the rank's K/V heads (static ones too) and
-    Mamba heads of ``h`` and conv channels; MLA's latents stay whole."""
+    Mamba heads of ``h`` and conv channels; MLA's latents stay whole.
+
+    ``cache_axis`` (an axis of ``tp``'s mesh, of size ``m``; see
+    ``repro_torch.sharding.decode_cache_axis``): every attention K/V cache
+    (a local layer's ring too) and MLA latent holds this rank's block of
+    ``1 / m`` of its positions — every K/V head on ``"model"`` (the
+    ``seq`` placement), the rank's heads on ``"data"`` (the long-context
+    fallback).  Each length must divide ``m``.  The static cross caches
+    and Mamba's state keep their placement."""
     ref = params["embed"]
     hd, n = cfg.resolved_head_dim, cfg.num_blocks
+    m = 1 if cache_axis is None else tp.mesh.shape[cache_axis]
+
+    def seq(S: int) -> int:
+        if S % m:
+            raise ValueError(f"a decode cache of {S} positions does not "
+                             f"split over the {cache_axis!r} axis ({m})")
+        return S // m
+
     cache: dict = {}
     for i, kind in enumerate(cfg.pattern):
         if kind == "cross_attn":
             cache[f"s{i}"] = _static_kv(
                 cfg, params["blocks"][f"s{i}"]["cross"], vision,
-                _sub_lora(lora, f"s{i}.cross"), lora_scale)
+                _sub_lora(lora, f"s{i}.cross"), lora_scale, tp)
         elif kind == "mamba":
             s, mp = cfg.ssm, params["blocks"][f"s{i}"]["mamba"]
             cache[f"s{i}"] = {
@@ -463,18 +599,22 @@ def init_cache(cfg: ModelConfig, params: Tree, batch: int, max_len: int, *,
                 "conv": ref.new_zeros((n, batch, s.conv_width - 1,
                                        mp["conv_w"].shape[-1]))}
         elif cfg.mla is not None:
-            m = cfg.mla
+            ml = cfg.mla
             cache[f"s{i}"] = {
-                "c_kv": ref.new_zeros((n, batch, max_len, m.kv_lora_rank)),
-                "k_rope": ref.new_zeros((n, batch, max_len,
-                                         m.qk_rope_head_dim))}
+                "c_kv": ref.new_zeros((n, batch, seq(max_len),
+                                       ml.kv_lora_rank)),
+                "k_rope": ref.new_zeros((n, batch, seq(max_len),
+                                         ml.qk_rope_head_dim))}
         else:
             S = max_len
             if kind == "attn_local" and cfg.sliding_window:
                 S = min(max_len, cfg.sliding_window)
-            # the K/V heads of these weights (a tensor-parallel rank's own)
+            # the K/V heads of these weights (a tensor-parallel rank's own;
+            # every head in a cache split over "model")
             kv = params["blocks"][f"s{i}"]["attn"]["wk"].shape[-1] // hd
-            shape = (n, batch, S, kv, hd)
+            if cache_axis == "model":
+                kv = cfg.num_kv_heads
+            shape = (n, batch, seq(S), kv, hd)
             cache[f"s{i}"] = {"k": ref.new_zeros(shape),
                               "v": ref.new_zeros(shape)}
     if cfg.family == "encdec":
@@ -482,12 +622,14 @@ def init_cache(cfg: ModelConfig, params: Tree, batch: int, max_len: int, *,
         for i in range(cfg.period):
             cache[f"s{i}_dec_cross"] = _static_kv(
                 cfg, params["blocks"][f"s{i}"]["dec_cross"], enc_out,
-                _sub_lora(lora, f"s{i}.dec_cross"), lora_scale)
+                _sub_lora(lora, f"s{i}.dec_cross"), lora_scale, tp,
+                "dec_cross")
     return cache
 
 
 def decode_step(cfg: ModelConfig, params: Tree, cache: Tree, tokens, pos, *,
-                lora=None, lora_scale: float = 1.0, embeds=None, tp=None):
+                lora=None, lora_scale: float = 1.0, embeds=None, tp=None,
+                cache_axis=None, score_axis=None):
     """One-token decode with one adapter for the whole batch.  ``tokens``
     int [B] (or ``embeds`` [B, 1, d], which replaces the token embedding —
     the vision prefix streams through it); ``pos``: int, the current
@@ -495,7 +637,10 @@ def decode_step(cfg: ModelConfig, params: Tree, cache: Tree, tokens, pos, *,
     layers it folds into the projections, as the reference's
     ``decode_step`` does.  The cache is updated in place.  Returns (logits
     f32 [B, V], cache); with ``tp`` (see :func:`decode_chunk`) the logits
-    are this rank's vocabulary columns."""
+    are this rank's vocabulary columns.  ``cache_axis``: the cache of
+    :func:`init_cache` with that axis; ``score_axis``: the ``scoreshard``
+    placement of MLA's scores (the reference's ``seq_axis``), ignored by
+    every other mixer, as the reference ignores it."""
     if embeds is not None:
         x = embeds
     elif tp is None:
@@ -504,13 +649,15 @@ def decode_step(cfg: ModelConfig, params: Tree, cache: Tree, tokens, pos, *,
         x = tp.embed(params["embed"], tokens)[:, None, :]
     p = torch.full((x.shape[0],), int(pos), dtype=torch.long, device=x.device)
     return decode_chunk(cfg, params, cache, x, p, adapters=lora,
-                        lora_scale=lora_scale, tp=tp)
+                        lora_scale=lora_scale, tp=tp, cache_axis=cache_axis,
+                        score_axis=score_axis)
 
 
 def decode_chunk(cfg: ModelConfig, params: Tree, cache: Tree, embeds, pos, *,
                  adapters=None, adapter_idx=None, lora_scale: float = 1.0,
                  valid=None, lora_kernel: bool = False, logits: bool = True,
-                 chunked: bool | None = False, tp=None):
+                 chunked: bool | None = False, tp=None, cache_axis=None,
+                 score_axis=None):
     """Batched multi-adapter decode over ``C`` positions per row — the
     serving hot path (``C = 1``: one-token decode; ``C = chunk``: chunked
     prefill).
@@ -540,7 +687,8 @@ def decode_chunk(cfg: ModelConfig, params: Tree, cache: Tree, embeds, pos, *,
     hold this rank's pieces (its heads, its ``d_ff`` and expert columns,
     a bank's ``B`` rows at the column-parallel sites and ``A`` columns at
     Mamba's row-parallel ``out_proj``) and the logits are its vocabulary
-    columns."""
+    columns; under FSDP each layer's weights are gathered as it runs.
+    ``cache_axis`` / ``score_axis``: as in :func:`decode_step`."""
     C = embeds.shape[1]
     if logits and C != 1:
         raise ValueError("logits=True needs C == 1 (prefill discards them)")
@@ -554,6 +702,8 @@ def decode_chunk(cfg: ModelConfig, params: Tree, cache: Tree, embeds, pos, *,
     h = embeds
     for l in range(cfg.num_blocks):
         bp = _layer(params["blocks"], l)
+        if tp is not None:
+            bp = tp.gather(bp)
         lt = _layer(bank, l)
         for i, kind in enumerate(cfg.pattern):
             pre, sp = f"s{i}", bp[f"s{i}"]
@@ -578,14 +728,16 @@ def decode_chunk(cfg: ModelConfig, params: Tree, cache: Tree, embeds, pos, *,
                 y, _ = L.mla_decode_batch(
                     sp["mla"], hn, ci, cfg, pos=pos, valid=valid,
                     lora=_sub_lora(lt, f"{pre}.mla"), lora_scale=lora_scale,
-                    lora_idx=adapter_idx, lora_kernel=lora_kernel, tp=tp)
+                    lora_idx=adapter_idx, lora_kernel=lora_kernel, tp=tp,
+                    cache_axis=cache_axis, score_axis=score_axis)
             else:
                 mixer = "cross" if "cross" in sp else "attn"
                 y, _ = L.attention_decode_batch(
                     sp[mixer], hn, ci, cfg, kind=kind, pos=pos, valid=valid,
                     lora=_sub_lora(lt, f"{pre}.{mixer}"),
                     lora_scale=lora_scale, lora_idx=adapter_idx,
-                    lora_kernel=lora_kernel, chunked=chunked, tp=tp)
+                    lora_kernel=lora_kernel, chunked=chunked, tp=tp,
+                    cache_axis=None if mixer == "cross" else cache_axis)
             h = h + y
             if "dec_cross" in sp:
                 hx = L.rms_norm(h, sp["lnx"], cfg.norm_eps)

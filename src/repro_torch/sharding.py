@@ -30,6 +30,10 @@ keeps whole heads (attention, MLA, SSM heads) or whole expert columns on
 each rank, keeps a sublayer whole where they do not divide, and places
 these otherwise than the rules:
 
+* attention's K/V heads where they are fewer than the ``"model"`` axis:
+  each rank holds one, shared by ``n / num_kv_heads`` ranks (the rules
+  split ``wk`` / ``wv`` into ``head_dim`` blocks); the attention biases
+  by heads, not replicated;
 * Mamba's ``in_proj`` ``[d, z | xs | B | C | dt]`` and its conv channels
   ``[xs | B | C]``: cut segment by segment (``z``, ``xs``, ``dt`` by
   heads, the one group's ``B`` / ``C`` whole on every rank), not into
@@ -40,8 +44,15 @@ these otherwise than the rules:
   :func:`cache_spec` splits the trailing dimension (N, or C in contiguous
   blocks); the attention K/V cache by KV heads, not by ``head_dim``;
   MLA's ``c_kv`` / ``k_rope`` whole (``wdq`` and ``wkv_a`` stay whole);
-* the enc-dec frontend ``encoder.in_proj`` whole, though its name is
-  Mamba's.
+* the enc-dec frontend ``encoder.in_proj`` whole over ``"model"``,
+  though its name is Mamba's;
+* a ``seq`` cache (``cache_spec(mode="seq")``) holds every K/V head of its
+  ``S / model`` positions, as the rule says; the static cross caches keep
+  their baseline placement.
+
+The ``"data"`` components of :func:`param_spec` are the port's FSDP
+pieces (``TensorParallel(fsdp=True)``), and :func:`decode_cache_axis`
+names the axis a decode cache's sequence splits over.
 """
 
 from __future__ import annotations
@@ -214,6 +225,38 @@ def cache_spec(path: tuple, shape: tuple, mesh, mode: str = "baseline") -> P:
     return fit_spec(mesh, shape, P(*spec))
 
 
+def global_rows(B: int, n: int, dp: int, coord: int) -> list:
+    """The global rows of a batch of ``B`` that the rank at ``coord`` of
+    ``dp`` batch-sharded ranks holds, in its own order, when a step splits
+    the batch into ``n`` microbatches: the reference's microbatch ``i`` is
+    global rows ``[i·B/n, (i+1)·B/n)``, and this rank holds block
+    ``coord`` of each, so its own microbatch ``i`` (its local rows ``[i·B/
+    (n·dp), (i+1)·B/(n·dp))``) is its share of the reference's."""
+    if B % (n * dp):
+        raise ValueError(f"a batch of {B} does not split into {n} "
+                         f"microbatches over {dp} ranks")
+    mb, loc = B // n, B // (n * dp)
+    return [i * mb + coord * loc + j for i in range(n) for j in range(loc)]
+
+
+def decode_cache_axis(mesh, batch: int, seq: int,
+                      mode: str = "baseline"):
+    """The axis a decode cache's sequence splits over, by
+    :func:`cache_spec`'s rules: ``"model"`` under ``mode="seq"`` (when it
+    divides the sequence), ``"data"`` when the batch does not divide the
+    batch axes (the long-context fallback), else ``None``."""
+    ba = batch_axes(mesh)
+    bsz = math.prod(mesh.shape[a] for a in ba) if ba else 1
+    batch_ok = bool(ba) and batch % bsz == 0 and batch >= bsz
+    if mode == "seq" and "model" in mesh.axis_names \
+            and seq % mesh.shape["model"] == 0:
+        return "model"
+    if not batch_ok and "data" in mesh.axis_names \
+            and seq % mesh.shape["data"] == 0:
+        return "data"
+    return None
+
+
 def round_mesh_axes(mesh) -> tuple:
     """``(client_axis, model_axis)`` of a federated round mesh: a 1-D mesh
     (any axis name) is all client axis, ``(None)`` model axis; a 2-D mesh
@@ -249,6 +292,6 @@ def shard_local(tensor, spec: tuple, mesh):
     return out.contiguous()
 
 
-__all__ = ["P", "batch_axes", "batch_spec", "cache_spec", "fit_spec",
-           "lora_spec", "param_spec", "param_spec_tp", "round_mesh_axes",
+__all__ = ["P", "batch_axes", "batch_spec", "cache_spec",
+           "decode_cache_axis", "fit_spec", "global_rows", "lora_spec", "param_spec", "param_spec_tp", "round_mesh_axes",
            "shard_local"]

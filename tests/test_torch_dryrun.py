@@ -8,9 +8,10 @@ a record for train, prefill and decode on every family with collective
 bytes > 0; the fed round on fedbench-tiny on both meshes; the scaling of a
 two-block (and two-microbatch) trace to the whole stack against a trace of
 the whole stack, every microbatch, equal in FLOPs, bytes accessed,
-collectives and peak bytes; the tracer's FLOPs against
-``FlopCounterMode``'s; the long_500k skip, the refused sharding modes,
-the CLI, and the meshes' shapes and flattened axes."""
+collectives and peak bytes (under ``ep`` and ``sp`` too); the tracer's
+FLOPs against ``FlopCounterMode``'s; the long_500k skip; a record of
+every sharding mode with the collective kinds its placement issues; the
+CLI, and the meshes' shapes and flattened axes."""
 
 import dataclasses
 import json
@@ -33,6 +34,23 @@ SCALED = ["qwen2-0.5b", "gemma3-12b", "jamba-v0.1-52b", "deepseek-v2-236b",
 # small shapes of the three kinds, registered beside the production ones
 SMALL = {"t_small": (256, 16, "train"), "p_small": (512, 8, "prefill"),
          "d_small": (512, 8, "decode")}
+# every sharding mode: (arch, shape) -> the collective kinds it must issue
+MODE_CASES = {
+    "baseline": [("qwen2-0.5b", "t_small", ("all-gather", "all-reduce"))],
+    "ep": [("llama4-scout-17b-a16e", "t_small", ("all-to-all",)),
+           ("deepseek-v2-236b", "d_small", ("all-to-all",))],
+    "sp": [("qwen2-0.5b", "t_small", ("reduce-scatter", "all-gather")),
+           ("jamba-v0.1-52b", "t_small", ("reduce-scatter",))],
+    "ep_sp": [("llama4-scout-17b-a16e", "t_small",
+               ("all-to-all", "reduce-scatter"))],
+    "seq": [("gemma3-12b", "d_small", ("all-gather", "all-reduce")),
+            ("gemma3-12b", "long_500k", ("all-reduce",))],
+    "scoreshard": [("deepseek-v2-236b", "d_small", ("all-gather",))],
+    "seq_scoreshard": [("deepseek-v2-236b", "d_small", ("all-gather",))],
+}
+# (arch, mode) whose scaled trace is held against the whole stack
+SCALED_MODES = [("llama4-scout-17b-a16e", "ep"), ("jamba-v0.1-52b", "sp"),
+                ("llama4-scout-17b-a16e", "ep_sp")]
 
 
 def _worker() -> dict:
@@ -79,6 +97,10 @@ def _worker() -> dict:
             "fedbench-tiny", multi_pod=tag == "flat", mesh=mesh,
             cfg=get_reduced_config("fedbench-tiny"), rank=8, local_steps=2,
             client_batch=4, seq=32)
+    pick = lambda t: {
+        "flops": t.flops, "bytes": t.bytes_accessed, "peak": t.peak,
+        "counts": sorted((f"{k}", v) for k, v in t.counts.items()),
+        "coll_bytes": sorted((f"{k}", v) for k, v in t.coll_bytes.items())}
     # scaling against the whole stack, every microbatch
     for arch in SCALED:
         base = get_reduced_config(arch)
@@ -93,11 +115,6 @@ def _worker() -> dict:
                                       first=1 if kind == "prefill" else 2)
             fn, args = make_call(cfg.num_blocks, nm or 1)
             whole = D.trace(fn, *args, mesh=debug)
-            pick = lambda t: {
-                "flops": t.flops, "bytes": t.bytes_accessed, "peak": t.peak,
-                "counts": sorted((f"{k}", v) for k, v in t.counts.items()),
-                "coll_bytes": sorted((f"{k}", v)
-                                     for k, v in t.coll_bytes.items())}
             out["scaled"][f"{arch}/{shape}"] = {
                 "est": pick(est), "whole": pick(whole),
                 "traced_blocks": how["traced_blocks"]}
@@ -111,15 +128,29 @@ def _worker() -> dict:
         fn(*args)
     out["flop_counter"] = [fc.get_total_flops(),
                            D.trace(fn, *args, mesh=debug).flops]
-    # the refused modes
+    # every sharding mode
     out["modes"] = {}
-    for mode in ("ep", "sp", "ep_sp", "seq", "scoreshard"):
-        try:
-            D.dryrun_one("qwen2-0.5b", "t_small", multi_pod=False,
-                         mesh=debug, sharding_mode=mode)
-            out["modes"][mode] = "ran"
-        except NotImplementedError as e:
-            out["modes"][mode] = str(e)
+    for mode, cases in MODE_CASES.items():
+        for arch, shape, _ in cases:
+            out["modes"][f"{mode}/{arch}/{shape}"] = D.dryrun_one(
+                arch, shape, multi_pod=False, mesh=debug,
+                cfg=get_reduced_config(arch), rank=8, sharding_mode=mode,
+                num_micro_override=2 if shape == "t_small" else None)
+    # scaling under the placements that change execution
+    for arch, mode in SCALED_MODES:
+        base = get_reduced_config(arch)
+        cfg = dataclasses.replace(base, num_layers=4 * base.period)
+        tp = D.make_tp(cfg, debug, "train", mode)
+        ab, nm, make_call = D.step_calls(
+            cfg, INPUT_SHAPES["t_small"], mesh=debug, tp=tp, rank=8,
+            num_micro_override=4, mode=mode)
+        est, how = D.scaled_trace(make_call, cfg.num_blocks, nm, debug,
+                                  first=2)
+        fn, args = make_call(cfg.num_blocks, nm)
+        whole = D.trace(fn, *args, mesh=debug)
+        out["scaled"][f"{arch}/{mode}"] = {
+            "est": pick(est), "whole": pick(whole),
+            "traced_blocks": how["traced_blocks"]}
     out["counter_keys"] = sorted(
         f"{op}|{ax}" for (op, ax) in collections.Counter(
             debug.collectives))
@@ -174,8 +205,9 @@ def test_long_500k_skips_as_the_reference(res):
 def test_three_axis_mesh_means_gradients_over_pod_and_data(res):
     rec = res["records"]["flat/t_small"]
     assert rec["mesh"] == "2x2x2"
-    # one all-reduce over the flattened batch axes, per step
-    assert res["flat_counts"]["all_reduce|('pod', 'data')"] == 1
+    # all-reduces over the flattened batch axes, per step: each of the two
+    # microbatches' mask counts, then the gradients and metrics
+    assert res["flat_counts"]["all_reduce|('pod', 'data')"] == 3
     assert res["flat_counts"]["all_reduce|model"] > 0
     assert res["meshes"]["flat_batch"] == 4
     assert res["meshes"]["flat_group"] == 4
@@ -194,10 +226,12 @@ def test_dryrun_fedround(res, tag):
     assert rec["cost_analysis"] == res["fedround"]["debug"]["cost_analysis"]
 
 
-@pytest.mark.parametrize("arch", SCALED)
+@pytest.mark.parametrize("arch", SCALED + [f"{a}/{m}"
+                                           for a, m in SCALED_MODES])
 def test_scaled_trace_equals_the_whole_stack(res, arch):
-    for shape in SMALL:
-        got = res["scaled"][f"{arch}/{shape}"]
+    shapes = SMALL if "/" not in arch else [arch.split("/")[1]]
+    for shape in shapes:
+        got = res["scaled"][arch if "/" in arch else f"{arch}/{shape}"]
         assert got["est"] == got["whole"], (shape, got)
         assert len(got["traced_blocks"]) == 2
 
@@ -207,10 +241,30 @@ def test_tracer_flops_are_flop_counter_modes(res):
     assert mode == mine > 0
 
 
-def test_non_baseline_modes_raise(res):
-    for mode, what in res["modes"].items():
-        assert what != "ran", mode
-        assert "ROADMAP.md queue 1, item 1.5" in what
+@pytest.mark.parametrize("mode", list(MODE_CASES))
+def test_every_sharding_mode(res, mode):
+    """A record for every mode, tagged with it, whose collectives include
+    the kinds its placement issues and whose placement says what ran."""
+    for arch, shape, kinds in MODE_CASES[mode]:
+        rec = res["modes"][f"{mode}/{arch}/{shape}"]
+        assert "error" not in rec and "skipped" not in rec, rec
+        assert rec["sharding_mode"] == mode
+        counts = rec["collectives"]["counts"]
+        for kind in kinds:
+            assert counts[kind] > 0, (mode, arch, shape, kind, counts)
+        pl = rec["placement"]
+        assert pl["fsdp"]
+        assert pl["expert_parallel"] == ("ep" in mode.split("_"))
+        assert pl["seq_parallel"] == ("sp" in mode.split("_"))
+        if shape == "long_500k":
+            assert pl["cache_axis"] == ("model" if "seq" in mode else "data")
+        elif SMALL[shape][2] == "decode":
+            assert pl["cache_axis"] == ("model" if "seq" in mode.split("_")
+                                        else None)
+            assert pl["score_axis"] == ("model" if "scoreshard" in mode
+                                        else None)
+        if "ep" not in mode.split("_") and "sp" not in mode.split("_"):
+            assert counts["all-to-all"] == counts["reduce-scatter"] == 0
 
 
 def test_debug_mesh_shapes_and_counter_keys(res):
@@ -236,11 +290,18 @@ def test_cli_writes_records_and_refuses_modes(tmp_path):
         assert rec["mesh"] == mesh and rec["kind"] == "decode"
         assert "skipped" in rec
     assert "2 records, 0 failed" in done.stdout
+    done = run("--arch", "qwen2-0.5b", "--shape", "long_500k",
+               "--sharding-mode", "seq_scoreshard")
+    assert done.returncode == 0, done.stderr[-3000:]
+    rec = json.loads((tmp_path / "qwen2-0.5b__long_500k__16x16__"
+                      "seq_scoreshard.json").read_text())
+    assert rec["sharding_mode"] == "seq_scoreshard" and "skipped" in rec
     done = run("--arch", "qwen2-0.5b", "--shape", "train_4k",
-               "--sharding-mode", "sp")
+               "--sharding-mode", "ep_bogus")
     assert done.returncode != 0
-    assert "NotImplementedError" in done.stderr
-    assert not (tmp_path / "qwen2-0.5b__train_4k__16x16__sp.json").exists()
+    assert "unknown sharding mode" in done.stderr
+    assert not (tmp_path / "qwen2-0.5b__train_4k__16x16__ep_bogus.json"
+                ).exists()
 
 
 def test_importing_the_dry_run_starts_nothing():
