@@ -239,6 +239,15 @@ Phases (each raises on failure; the script then exits non-zero):
     the dry run's records of ``PLACEMENT_SWEEP`` (the pairs each mode
     changes, on a fake 16x16 process group), traced on the host's cores
     from the start of the run.
+23. examples — the port's six examples (``repro_torch.examples``), each
+    ``main`` in this process at its defaults (``federated_finetune`` at
+    ``--rounds 2``: fedbench-100m at full width, both methods, 10 local
+    steps, batch 8): finite losses, BLEU and RSUM; ``serve_decode``'s
+    decode within 2e-3 of the forward and ``serve_multitenant``'s engine
+    tokens equal to the single-tenant decode (each example raises
+    otherwise); the records' shapes; a line with each example's wall.
+    The examples keep the reference's routes (``fedilora``, ``hetlora``,
+    ``fedbuff``, the engine's ``"gather"``), so no kernel launches there.
 
 Each path that runs a kernel (ops: ``lora_matmul`` and ``flash_attention``;
 serve, slo and families: BGMV; train, faults, timelines, population,
@@ -5271,6 +5280,138 @@ def phase_placements(dev_name: str, sweep) -> dict:
     return out
 
 
+EXAMPLE_ARGV = {"federated_finetune": ["--rounds", "2"]}
+EVAL_KEYS = ("loss", "acc", "bleu", "rsum")
+
+
+def _finite_eval(what: str, ev: dict) -> None:
+    if set(ev) != set(EVAL_KEYS) or not all(math.isfinite(ev[k])
+                                            for k in EVAL_KEYS):
+        raise AssertionError(f"{what}: evaluation {ev}")
+
+
+def _finite_rounds(what: str, recs: list, n: int) -> None:
+    if len(recs) != n or not all(math.isfinite(r["train_loss"])
+                                 for r in recs):
+        raise AssertionError(f"{what}: {n} finite round losses expected, "
+                             f"got {[r['train_loss'] for r in recs]}")
+
+
+def _example_checks(name: str, rec: dict) -> dict:
+    """Hold what an example's ``main`` returned: finite losses and
+    metrics, and the shapes its reference counterpart prints.  Returns
+    the figures the phase keeps."""
+    if name == "heterogeneous_ranks":
+        n = rec["norms"]
+        if (rec["w"].shape != (4, 8)
+                or abs(rec["col_sums"] - 1).max() > 1e-6
+                or abs(n["fedilora"] - n["client"]) > 1e-5 * n["client"]
+                or abs(4 * n["hetlora"] - n["client"]) > 1e-5 * n["client"]):
+            raise AssertionError(f"heterogeneous_ranks: {rec}")
+        return {"norms": n}
+    if name == "quickstart":
+        _finite_rounds(name, rec["rounds"], 8)
+        _finite_eval("quickstart global", rec["global"])
+        _finite_eval("quickstart personalized", rec["personalized"])
+        return {"losses": [r["train_loss"] for r in rec["rounds"]],
+                "global": rec["global"], "personalized": rec["personalized"]}
+    if name == "async_rounds":
+        tl, asy = rec["timeline"], rec["async"]
+        blocking, piped = tl["blocking"], tl["pipelined"]
+        _finite_rounds("async_rounds blocking", blocking, 7)
+        _finite_rounds("async_rounds pipelined", piped[1:], 7)
+        if piped[0] is not None or [r["sampled"] for r in piped[1:]] != [
+                r["sampled"] for r in blocking]:
+            raise AssertionError("async_rounds: the pipelined rounds' cohorts "
+                                 "are not the blocking ones")
+        if len(asy["ticks"]) != 12 or asy["versions"] < 1:
+            raise AssertionError(f"async_rounds: {len(asy['ticks'])} ticks, "
+                                 f"{asy['versions']} versions")
+        _finite_eval("async_rounds personalized", asy["eval"])
+        return {"rounds_per_s": tl["rounds_per_s"],
+                "pipelined_loss_gap": max(
+                    abs(a["train_loss"] - b["train_loss"])
+                    for a, b in zip(piped[1:], blocking)),
+                "versions": asy["versions"], "eval": asy["eval"]}
+    if name == "federated_finetune":
+        if list(rec) != ["fedilora", "hetlora"]:
+            raise AssertionError(f"federated_finetune ran {list(rec)}")
+        for method, r in rec.items():
+            _finite_rounds(method, r["rounds"], 2)
+            _finite_eval(f"{method} global", r["global"])
+            _finite_eval(f"{method} personalized", r["personalized"])
+        return {m: {"losses": [x["train_loss"] for x in r["rounds"]],
+                    "global": r["global"], "personalized": r["personalized"],
+                    "wall_s": r["wall_s"]} for m, r in rec.items()}
+    if name == "serve_decode":
+        for arch, r in rec.items():
+            if r["gen"].shape != (4, 8) or max(r["errs"]) >= 2e-3:
+                raise AssertionError(f"serve_decode {arch}: {r['gen'].shape}, "
+                                     f"decode/prefill {max(r['errs'])}")
+        return {arch: {"max_err": max(r["errs"]), "cache_mib": r["cache_mib"]}
+                for arch, r in rec.items()}
+    if name == "serve_multitenant":
+        _finite_rounds(name, rec["train"], 2)
+        eng, store, done = rec["continuous"]
+        eng_s, _, done_s = rec["static"]
+        for what, d in (("continuous", done), ("static", done_s),
+                        ("sampled", rec["sampled"])):
+            if len(d) != 12 or any(r["status"] != "ok" for r in d):
+                raise AssertionError(f"serve_multitenant {what}: "
+                                     f"{len(d)} requests finished")
+        return {"steps": eng.steps, "static_steps": eng_s.steps,
+                "dispatch": dict(eng.dispatch_count),
+                "pages_in_out": [store.loads, store.evictions],
+                "sampled_changed": rec["changed"]}
+    raise KeyError(name)
+
+
+def phase_examples() -> dict:
+    """The port's six examples, each ``main`` run in this process on the
+    card (``EXAMPLE_ARGV``: the one cut, ``federated_finetune``'s depth).
+    Their paths keep the reference's plain routes: no kernel launches."""
+    import contextlib
+    import importlib
+    import io
+
+    import torch
+
+    from repro_torch.examples import EXAMPLES
+    from repro_torch.kernels import dim_agg as DK
+    from repro_torch.kernels import grouped_lora_matmul as glm
+
+    glm.reset_launches()
+    DK.reset_launches()
+    out = {}
+    for name in EXAMPLES:
+        mod = importlib.import_module(f"repro_torch.examples.{name}")
+        printed = io.StringIO()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(printed):
+            rec = mod.main(EXAMPLE_ARGV.get(name, []))
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        out[name] = {"wall_s": wall, "argv": EXAMPLE_ARGV.get(name, []),
+                     "printed": printed.getvalue(),
+                     **_example_checks(name, rec)}
+        print(f"examples: {' '.join([name, *out[name]['argv']])} "
+              f"{wall:.1f} s", flush=True)
+    out["launches"] = {"grouped_lora_matmul": glm.launches, **DK.launches}
+    if any(out["launches"].values()):
+        raise AssertionError(f"the examples launched kernels "
+                             f"{out['launches']} on their plain routes")
+    ff = out["federated_finetune"]
+    print("examples: federated_finetune --rounds 2 (fedbench-100m): "
+          + "; ".join(f"{m} losses {[round(x, 4) for x in r['losses']]}, "
+                      f"global BLEU {r['global']['bleu']:.2f} RSUM "
+                      f"{r['global']['rsum']:.2f}, personalized BLEU "
+                      f"{r['personalized']['bleu']:.2f} RSUM "
+                      f"{r['personalized']['rsum']:.2f}, {r['wall_s']} s"
+                      for m, r in ff.items() if isinstance(r, dict)
+                      and "losses" in r), flush=True)
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -5335,6 +5476,7 @@ def main() -> int:
     meshed_families = timed("mesh_families", phase_mesh_families, dev_name)
     analysis = timed("analysis", phase_analysis, dev_name)
     placements = timed("placements", phase_placements, dev_name, sweep)
+    examples = timed("examples", phase_examples)
     print("phase wall s: " + ", ".join(f"{k} {v:.1f}"
                                        for k, v in phase_s.items()),
           flush=True)
@@ -5522,7 +5664,8 @@ def main() -> int:
                    "checkpoint": ckpt, "eval_ref": eval_ref, "cli": cli,
                    "families": families, "vision": vision,
                    "mesh": meshed, "mesh_families": meshed_families,
-                   "analysis": analysis, "placements": placements},
+                   "analysis": analysis, "placements": placements,
+                   "examples": examples},
                   f, indent=1, default=float)
     print(json.dumps({"kernels": records}))
     print(smi)

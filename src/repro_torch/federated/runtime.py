@@ -1196,6 +1196,24 @@ class FederatedTrainer:
                               lora_scale=self.lora_scale, vision=image, tp=tp)
         return logits[:, pos]
 
+    def _generate_cached(self, lora, tokens: np.ndarray, image,
+                         cap_start: int, gen_len: int) -> np.ndarray:
+        """KV-cached greedy decode of ``gen_len`` tokens after
+        ``tokens[:, :cap_start + 1]`` (``image``: a tensor on the device or
+        ``None``): one ``generate`` dispatch → int [B, gen_len]."""
+        key = (tokens.shape[0], cap_start, gen_len)
+        fn = self._gen_cache.get(key)
+        if fn is None:
+            fn = make_greedy_generate(
+                self.mcfg, lora_scale=self.lora_scale,
+                cap_start=cap_start, gen_len=gen_len, tp=self._tp)
+            self._gen_cache[key] = fn
+        toks = torch.from_numpy(
+            np.ascontiguousarray(tokens[:, :cap_start + 1])).to(self.device)
+        gen = self._dispatch("generate", fn, self.base_params, lora, toks,
+                             image)
+        return gen.cpu().numpy()
+
     def generation_scores(self, lora, data: dict, n: int = 32,
                           cached: bool = True) -> dict:
         """Greedy caption generation with ``lora`` → Google-BLEU /
@@ -1211,17 +1229,9 @@ class FederatedTrainer:
         image = (torch.from_numpy(np.asarray(data["image"][:n])).to(
             self.device) if "image" in data else None)
         if cached:
-            key = (tokens.shape[0], cap_start, gen_len)
-            fn = self._gen_cache.get(key)
-            if fn is None:
-                fn = make_greedy_generate(
-                    self.mcfg, lora_scale=self.lora_scale,
-                    cap_start=cap_start, gen_len=gen_len, tp=self._tp)
-                self._gen_cache[key] = fn
-            toks = torch.from_numpy(tokens[:, :cap_start + 1]).to(self.device)
-            gen = self._dispatch("generate", fn, self.base_params, lora, toks,
-                                 image)
-            return _score_generated(gen.cpu().numpy(), labels, loss_mask)
+            gen = self._generate_cached(lora, tokens, image, cap_start,
+                                        gen_len)
+            return _score_generated(gen, labels, loss_mask)
         toks = np.array(tokens, copy=True)
         toks[:, cap_start + 1:] = 0
         toks = torch.from_numpy(toks).to(self.device)

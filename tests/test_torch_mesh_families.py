@@ -26,7 +26,10 @@ port's unmeshed one.  A (1, 1) mesh in a one-rank group is the port's
 unmeshed round bit for bit.
 
 The ranks import this module (spawn), so JAX is imported only inside the
-functions that run the reference."""
+functions that run the reference.  This file runs the two families with
+SSM layers, mamba2-130m and Jamba; ``tests/test_torch_mesh_families_attn.py``
+runs DeepSeek-V2, llama4-scout and llama-3.2-vision through the same
+harness, each file with its own ranks."""
 
 import os
 import time
@@ -45,6 +48,7 @@ from test_torch_mesh_round import (LR, ROUNDS, TOTAL,  # noqa: E402
 FAMILIES = ["mamba2-130m", "jamba-v0.1-52b", "deepseek-v2-236b",
             "llama4-scout-17b-a16e", "llama-3.2-vision-11b"]
 MOE = ["jamba-v0.1-52b", "deepseek-v2-236b", "llama4-scout-17b-a16e"]
+HERE = FAMILIES[:2]           # this file's; the other file takes the rest
 AGG, GATE, STEPS = "fedilora_kernel", 0.5, 3
 FED = dict(num_clients=2, sample_rate=1.0, ranks=(4, 8), local_steps=STEPS,
            batch_size=4, aggregator=AGG)
@@ -160,13 +164,14 @@ def _record_routes() -> list:
     return seen
 
 
-def _rank_rounds(rank, world, rdv, shape, case_dir, out):
-    """One rank: every family's rounds on a ``(client, "model")`` mesh of
-    ``shape``, each as soon as its case appears in ``case_dir``."""
+def _rank_rounds(rank, world, rdv, shape, case_dir, names, out):
+    """One rank: the rounds of each family of ``names`` on a ``(client,
+    "model")`` mesh of ``shape``, each as soon as its case appears in
+    ``case_dir``."""
     mesh = join_mesh(rank, world, rdv, shape, ("client", "model"))
     routes = _record_routes()
     res = {}
-    for name in FAMILIES:
+    for name in names:
         path = os.path.join(case_dir, f"{name}.pt")
         while not os.path.exists(path):
             time.sleep(0.05)
@@ -193,20 +198,19 @@ def _rank_rounds(rank, world, rdv, shape, case_dir, out):
 MESHES = {"1x2": ((1, 2), 2), "2x2": ((2, 2), 4)}
 
 
-@pytest.fixture(scope="module")
-def runs(tmp_path_factory):
-    """``(cases, the reference's rounds, the meshed ranks' results)``:
-    one spawned group per mesh runs every family, each as soon as this
-    process has written its case, while this process goes on to the
-    reference's rounds."""
+def make_runs(tmp_path_factory, names):
+    """``(cases, the reference's rounds, the meshed ranks' results)`` for
+    the families ``names``: one spawned group per mesh runs each family as
+    soon as this process has written its case, while this process goes on
+    to the reference's rounds."""
     case_dir = str(tmp_path_factory.mktemp("cases"))
     groups = {}
     for what, (shape, world) in MESHES.items():
         d = tmp_path_factory.mktemp(what)
-        groups[what] = (start(_rank_rounds, world, str(d), shape, case_dir),
-                        d, world)
+        groups[what] = (start(_rank_rounds, world, str(d), shape, case_dir,
+                              list(names)), d, world)
     cases, refs = {}, {}
-    for name in FAMILIES:
+    for name in names:
         cases[name], refs[name] = reference_family(name)
         path = os.path.join(case_dir, f"{name}.pt")
         torch.save(cases[name], path + ".part")
@@ -217,6 +221,11 @@ def runs(tmp_path_factory):
         finish(ctx, timeout=300.0)
         meshed[what] = load_ranks(d, world)
     return cases, wants, meshed
+
+
+@pytest.fixture(scope="module")
+def runs(tmp_path_factory):
+    return make_runs(tmp_path_factory, HERE)
 
 
 def start(fn, world: int, out: str, *args):
@@ -239,7 +248,7 @@ def finish(ctx, timeout: float) -> None:
 
 
 @pytest.mark.parametrize("mesh", list(MESHES))
-@pytest.mark.parametrize("name", FAMILIES)
+@pytest.mark.parametrize("name", HERE)
 def test_family_rounds_on_mesh_match_reference(name, mesh, runs):
     """Clients over ``"client"``, each group's local training
     tensor-parallel over ``"model"``: one ``round_step`` a round, every
@@ -253,7 +262,7 @@ def test_family_rounds_on_mesh_match_reference(name, mesh, runs):
 
 
 @pytest.mark.parametrize("mesh", list(MESHES))
-@pytest.mark.parametrize("name", MOE)
+@pytest.mark.parametrize("name", [n for n in MOE if n in HERE])
 def test_moe_routes_agree_on_every_rank(name, mesh, runs):
     """The router runs whole on every rank: the ranks of one client group
     make the same routing decisions, call for call."""
@@ -267,7 +276,7 @@ def test_moe_routes_agree_on_every_rank(name, mesh, runs):
             assert all(torch.equal(a, b) for a, b in zip(other, group[0]))
 
 
-@pytest.mark.parametrize("name", FAMILIES)
+@pytest.mark.parametrize("name", HERE)
 def test_population_eval_on_2x2_mesh(name, runs):
     """The personalized sweep with greedy decoding on the 2×2 mesh (each
     client group its block of clients, tensor-parallel) in one dispatch
@@ -279,7 +288,7 @@ def test_population_eval_on_2x2_mesh(name, runs):
         assert n_pop == 1
 
 
-@pytest.mark.parametrize("name", FAMILIES)
+@pytest.mark.parametrize("name", HERE)
 def test_async_update_on_1x2_mesh(name, runs):
     """``run_round_async`` (fedbuff's buffered client update) on the 1×2 mesh
     against the port's unmeshed async rounds: the same merges, losses
@@ -310,7 +319,7 @@ def world1(tmp_path_factory):
     dist.destroy_process_group()
 
 
-@pytest.mark.parametrize("name", FAMILIES)
+@pytest.mark.parametrize("name", HERE)
 def test_family_round_1x1_is_the_unmeshed_round(name, runs, world1):
     """At a model axis of size 1 every piece is whole and every
     collective returns its operand: the records and adapters equal the
