@@ -31,6 +31,7 @@ import torch
 
 from repro_torch.core.tree import Tree, tree_leaves, tree_map
 from repro_torch.kernels import dim_agg as DK
+from repro_torch.telemetry import span
 
 _EPS = 1e-12
 
@@ -346,18 +347,20 @@ def aggregate(name: str, stacked: Tree, ranks, p, *,
     ``(global_lora, base_delta)``.  The global adapter comes back
     contiguous: its layout decides how the next round's products round,
     and a checkpoint restores contiguous tensors, so a resumed run is
-    bit-identical only if the live one is contiguous too."""
+    bit-identical only if the live one is contiguous too.  Runs in an
+    ``aggregate`` span (``repro_torch.telemetry.span``)."""
     try:
         fn = AGGREGATORS[name]
     except KeyError:
         raise ValueError(f"unknown aggregator {name!r}; have "
                          f"{sorted(AGGREGATORS)}") from None
-    glob, delta = fn(stacked, ranks, p, hetlora_beta=hetlora_beta,
-                     lora_scale=lora_scale, staleness=staleness,
-                     anchor=anchor, staleness_decay=staleness_decay,
-                     clip=clip, trim=trim, fallback=fallback)
-    if glob is not None:
-        glob = tree_map(lambda x: x.contiguous(), glob)
+    with span("aggregate"):
+        glob, delta = fn(stacked, ranks, p, hetlora_beta=hetlora_beta,
+                         lora_scale=lora_scale, staleness=staleness,
+                         anchor=anchor, staleness_decay=staleness_decay,
+                         clip=clip, trim=trim, fallback=fallback)
+        if glob is not None:
+            glob = tree_map(lambda x: x.contiguous(), glob)
     return glob, delta
 
 

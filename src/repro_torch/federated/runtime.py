@@ -551,10 +551,13 @@ class FederatedTrainer:
 
     def _dispatch(self, name: str, fn, *args, **kw):
         """Call ``fn``, tallied in ``dispatch_count`` under ``name`` and
-        spanned (the span name is the dispatch-count key).  Kernels run
-        asynchronously, so the span measures the host's enqueue."""
+        spanned (the span name is the dispatch-count key), with the
+        telemetry current, so the phases and layers ``fn`` launches record
+        their spans under it.  Kernels run asynchronously, so a span
+        measures the host's enqueue."""
         self.dispatch_count[name] += 1
-        with self.telemetry.span(name, cat="dispatch"):
+        with self.telemetry.current(), \
+                self.telemetry.span(name, cat="dispatch"):
             return fn(*args, **kw)
 
     def flora_reinit(self, round_idx: int, sampled: list[int]):

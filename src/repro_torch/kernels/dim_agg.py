@@ -35,6 +35,7 @@ import torch
 
 from repro_torch.kernels.build import aligned16
 from repro_torch.kernels.ref import dim_agg_ref, dim_agg_trimmed_ref
+from repro_torch.telemetry import span
 
 #: kernel launches since the last reset, per kernel (CPU calls never count)
 launches = {"dim_agg": 0, "dim_agg_trimmed": 0}
@@ -278,26 +279,30 @@ def aggregate_leaves(leaves, weights: torch.Tensor,
     """FediLoRA Eq. 5 over leaves ``[(stacked, rank_axis), ...]`` that
     share w̃ [K, r]; ``scale`` [K] optionally multiplies each client's
     weight row (the FedBuff staleness discount or the clip factor).  One
-    kernel launch on CUDA; the plain version on the CPU."""
+    kernel launch on CUDA; the plain version on the CPU; either in a
+    ``dim_agg`` span."""
     dev = leaves[0][0].device
-    if dev.type == "cuda":
-        return dim_agg_tree_cuda(leaves, weights, scale)
-    if dev.type == "cpu":
-        return [plain_dim_agg(x, weights, scale, rank_axis=ax)
-                for x, ax in leaves]
+    with span("dim_agg"):
+        if dev.type == "cuda":
+            return dim_agg_tree_cuda(leaves, weights, scale)
+        if dev.type == "cpu":
+            return [plain_dim_agg(x, weights, scale, rank_axis=ax)
+                    for x, ax in leaves]
     raise ValueError(f"no dim_agg for device {dev}")
 
 
 def trimmed_leaves(leaves, p: torch.Tensor, cover: torch.Tensor,
                    t: torch.Tensor) -> list:
     """Per-element trimmed weighted mean over leaves that share p, cover
-    and t.  One kernel launch on CUDA; the plain version on the CPU."""
+    and t.  One kernel launch on CUDA; the plain version on the CPU;
+    either in a ``dim_agg_trimmed`` span."""
     dev = leaves[0][0].device
-    if dev.type == "cuda":
-        return dim_agg_trimmed_tree_cuda(leaves, p, cover, t)
-    if dev.type == "cpu":
-        return [plain_dim_agg_trimmed(x, p, cover, t, rank_axis=ax)
-                for x, ax in leaves]
+    with span("dim_agg_trimmed"):
+        if dev.type == "cuda":
+            return dim_agg_trimmed_tree_cuda(leaves, p, cover, t)
+        if dev.type == "cpu":
+            return [plain_dim_agg_trimmed(x, p, cover, t, rank_axis=ax)
+                    for x, ax in leaves]
     raise ValueError(f"no dim_agg_trimmed for device {dev}")
 
 

@@ -12,7 +12,9 @@ raises; on a CPU tensor it computes the plain version
 shrink ``xa = x·A[idx]ᵀ`` into a scratch ``[M, r]`` f32 buffer that the
 wrapper allocates, then the base product and the expansion — and
 ``launches`` counts calls (one per call), as the serve paths' checks
-(banked LoRA sites a block × blocks × calls) read it.
+(banked LoRA sites a block × blocks × calls) read it.  Each call runs in
+a ``bgmv`` span (``repro_torch.telemetry.span``), which nests inside the
+mixer that calls it.
 """
 
 from __future__ import annotations
@@ -22,6 +24,7 @@ import ctypes
 import torch
 
 from repro_torch.kernels.ref import grouped_lora_matmul_ref
+from repro_torch.telemetry import span
 
 #: kernel calls since the last reset (CPU calls never count)
 launches = 0
@@ -118,20 +121,21 @@ def grouped_lora_matmul(x: torch.Tensor, w: torch.Tensor, a: torch.Tensor,
     """BGMV over x [..., K]: w [K, N]; a [G, r, K]; b [G, N, r]; idx int,
     broadcastable to x's leading dims (a [B] index against x [B, chunk, K]
     covers the chunk axis).  Returns [..., N] in the dtype of x."""
-    lead = tuple(x.shape[:-1])
-    K = x.shape[-1]
-    N = w.shape[1]
-    x2 = x.reshape(-1, K)
-    idx2 = _flat_idx(torch.as_tensor(idx, device=x.device), lead)
-    if x.device.type == "cpu":
-        y = grouped_lora_matmul_ref(x2, w, a, b, idx2, scale=scale)
-    elif x.device.type == "cuda":
-        y = grouped_lora_matmul_cuda(x2, w, a, b,
-                                     idx2.to(torch.int32).contiguous(),
-                                     scale=scale)
-    else:
-        raise ValueError(f"no grouped_lora_matmul for device {x.device}")
-    return y.reshape(*lead, N)
+    with span("bgmv"):
+        lead = tuple(x.shape[:-1])
+        K = x.shape[-1]
+        N = w.shape[1]
+        x2 = x.reshape(-1, K)
+        idx2 = _flat_idx(torch.as_tensor(idx, device=x.device), lead)
+        if x.device.type == "cpu":
+            y = grouped_lora_matmul_ref(x2, w, a, b, idx2, scale=scale)
+        elif x.device.type == "cuda":
+            y = grouped_lora_matmul_cuda(x2, w, a, b,
+                                         idx2.to(torch.int32).contiguous(),
+                                         scale=scale)
+        else:
+            raise ValueError(f"no grouped_lora_matmul for device {x.device}")
+        return y.reshape(*lead, N)
 
 
 __all__ = ["MAX_RANK", "grouped_lora_matmul", "grouped_lora_matmul_cuda",

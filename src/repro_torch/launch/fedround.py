@@ -20,6 +20,12 @@ the trainer's persistent stacked client state, all on the device:
    the whole stacked tree;
 5. scatter the trained clients back into the stacked state.
 
+Under a runtime's current telemetry (``repro_torch.telemetry.span``) the
+phases run in spans: ``batch_gather``; per local step ``fwd_bwd`` (the
+backward's kernels launch from autograd's thread while it is open) and
+``optimizer`` (gradient mask, AdamW, re-mask); ``edit``; ``aggregate``
+(with ``dim_agg`` around the kernel's tree launch); ``scatter``.
+
 Where the reference vmaps the cohort, the port loops over it in Python;
 the cohort's losses, edited-module indices and ranks stay on the device,
 so the round enqueues its work without waiting for the device.  The
@@ -85,6 +91,7 @@ from repro_torch.launch.steps import loss_and_grad
 from repro_torch.models.config import ModelConfig
 from repro_torch.optim import OptimizerConfig, make_optimizer
 from repro_torch.sharding import round_mesh_axes
+from repro_torch.telemetry import span
 
 
 def _make_local_train(cfg: ModelConfig, opt_cfg: OptimizerConfig, *,
@@ -104,11 +111,13 @@ def _make_local_train(cfg: ModelConfig, opt_cfg: OptimizerConfig, *,
         losses = []
         for step in range(batches["tokens"].shape[0]):
             mb = {k: v[step] for k, v in batches.items()}
-            loss, _, g = loss_and_grad(cfg, base_params, lo, mb, lora_scale,
-                                       tp=tp)
-            g = mask_lora_params(g, rank, r_g)
-            lo, opt = opt_update(lo, g, opt)
-            lo = mask_lora_params(lo, rank, r_g)
+            with span("fwd_bwd"):
+                loss, _, g = loss_and_grad(cfg, base_params, lo, mb,
+                                           lora_scale, tp=tp)
+            with span("optimizer"):
+                g = mask_lora_params(g, rank, r_g)
+                lo, opt = opt_update(lo, g, opt)
+                lo = mask_lora_params(lo, rank, r_g)
             losses.append(loss)
         return lo, torch.stack(losses)
 
@@ -138,12 +147,13 @@ def _cohort_edit(loras: list, ranks_s: torch.Tensor, prev_global,
     global truncated to its rank (the reference's ``_vmapped_edit``);
     returns (edited adapters, edited-module index per client, int32)."""
     out, edited = [], []
-    for lo, rank in zip(loras, ranks_s):
-        glob_prev = truncate_redistribute(prev_global, rank, r_g)
-        lo_e, diag = edit_lora(lo, glob_prev, edit)
-        out.append(mask_lora_params(lo_e, rank, r_g))
-        edited.append(torch.argmax(diag["selected"]).to(torch.int32))
-    return out, torch.stack(edited)
+    with span("edit"):
+        for lo, rank in zip(loras, ranks_s):
+            glob_prev = truncate_redistribute(prev_global, rank, r_g)
+            lo_e, diag = edit_lora(lo, glob_prev, edit)
+            out.append(mask_lora_params(lo_e, rank, r_g))
+            edited.append(torch.argmax(diag["selected"]).to(torch.int32))
+        return out, torch.stack(edited)
 
 
 def stack_trees(trees: list) -> dict:
@@ -345,17 +355,19 @@ def _scatter(stacked_lora, ranks, idx, lora1, ranks_s, kept=None,
     place; with ``kept``, only those cohort rows (dropped clients keep
     their pre-round state); with ``n_s``, only the first ``n_s`` rows (a
     padded cohort's dummies never write back)."""
-    if n_s is not None and n_s < idx.shape[0]:
-        idx, ranks_s = idx[:n_s], ranks_s[:n_s]
-        lora1 = tree_map(lambda x: x[:n_s], lora1)
-    if kept is not None:
-        idx = idx[kept]
-        ranks_s = ranks_s[kept]
-    for name, entry in stacked_lora.items():
-        for m in ("A", "B"):
-            rows = lora1[name][m]
-            entry[m].index_copy_(0, idx, rows if kept is None else rows[kept])
-    ranks.index_copy_(0, idx, ranks_s.to(ranks.dtype))
+    with span("scatter"):
+        if n_s is not None and n_s < idx.shape[0]:
+            idx, ranks_s = idx[:n_s], ranks_s[:n_s]
+            lora1 = tree_map(lambda x: x[:n_s], lora1)
+        if kept is not None:
+            idx = idx[kept]
+            ranks_s = ranks_s[kept]
+        for name, entry in stacked_lora.items():
+            for m in ("A", "B"):
+                rows = lora1[name][m]
+                entry[m].index_copy_(0, idx,
+                                     rows if kept is None else rows[kept])
+        ranks.index_copy_(0, idx, ranks_s.to(ranks.dtype))
 
 
 def make_fed_round_step(cfg: ModelConfig, opt_cfg: OptimizerConfig, *,
@@ -534,8 +546,9 @@ def make_round_engine(cfg: ModelConfig, opt_cfg: OptimizerConfig, *,
         else:
             valid = None
             # device-side batch gather: [n_s, steps, B, ...]
-            batches = {k: v[idx[:, None, None], batch_idx]
-                       for k, v in data.items()}
+            with span("batch_gather"):
+                batches = {k: v[idx[:, None, None], batch_idx]
+                           for k, v in data.items()}
             ranks_s = ranks[idx]
             sizes_s = sizes[idx]
         lora1, ranks_s, metrics = client_phases(
@@ -643,8 +656,9 @@ def make_client_update_step(cfg: ModelConfig, opt_cfg: OptimizerConfig, *,
                                     for k, v in data.items()}
             ranks_s = ranks[gidx]
         else:
-            batches = {k: v[idx[:, None, None], batch_idx]
-                       for k, v in data.items()}
+            with span("batch_gather"):
+                batches = {k: v[idx[:, None, None], batch_idx]
+                           for k, v in data.items()}
             ranks_s = ranks[idx]
         lora1, ranks_s, metrics = client_phases(base_params, global_lora,
                                                 prev_global, ranks_s, batches)

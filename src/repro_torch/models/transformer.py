@@ -32,6 +32,7 @@ from repro_torch import resolve_device
 from repro_torch.core.lora import LoRASpec
 from repro_torch.models import layers as L
 from repro_torch.models.config import ModelConfig
+from repro_torch.telemetry import span
 
 Tree = Any
 
@@ -688,7 +689,12 @@ def decode_chunk(cfg: ModelConfig, params: Tree, cache: Tree, embeds, pos, *,
     a bank's ``B`` rows at the column-parallel sites and ``A`` columns at
     Mamba's row-parallel ``out_proj``) and the logits are its vocabulary
     columns; under FSDP each layer's weights are gathered as it runs.
-    ``cache_axis`` / ``score_axis``: as in :func:`decode_step`."""
+    ``cache_axis`` / ``score_axis``: as in :func:`decode_step`.
+
+    Under a runtime's current telemetry each sublayer's pre-norm and mixer
+    run in a ``mamba_mixer`` or ``attn_mixer`` span, its feed-forward in a
+    ``moe`` (or ``ffn``) span, and the final norm and unembed in
+    ``serve_head``."""
     C = embeds.shape[1]
     if logits and C != 1:
         raise ValueError("logits=True needs C == 1 (prefill discards them)")
@@ -707,37 +713,40 @@ def decode_chunk(cfg: ModelConfig, params: Tree, cache: Tree, embeds, pos, *,
         lt = _layer(bank, l)
         for i, kind in enumerate(cfg.pattern):
             pre, sp = f"s{i}", bp[f"s{i}"]
-            hn = L.rms_norm(h, sp["ln1"], cfg.norm_eps)
-            ci = {k: c[l] for k, c in cache[pre].items()}
-            if "mamba" in sp:
-                if C != 1:
-                    raise NotImplementedError(
-                        "chunked prefill over a recurrent mamba state is "
-                        "not supported (engine gates it)")
-                lo = _sub_lora(lt, f"{pre}.mamba")
-                if adapter_idx is None:
-                    y, _ = L.mamba_decode(_fold_mamba(sp["mamba"], lo,
-                                                      lora_scale), hn, ci, cfg,
-                                          tp=tp)
-                else:
-                    y, _ = L.mamba_decode(
-                        sp["mamba"], hn, ci, cfg, lora=lo,
+            # the sublayer's pre-norm and mixer
+            with span("mamba_mixer" if "mamba" in sp else "attn_mixer"):
+                hn = L.rms_norm(h, sp["ln1"], cfg.norm_eps)
+                ci = {k: c[l] for k, c in cache[pre].items()}
+                if "mamba" in sp:
+                    if C != 1:
+                        raise NotImplementedError(
+                            "chunked prefill over a recurrent mamba state is "
+                            "not supported (engine gates it)")
+                    lo = _sub_lora(lt, f"{pre}.mamba")
+                    if adapter_idx is None:
+                        y, _ = L.mamba_decode(
+                            _fold_mamba(sp["mamba"], lo, lora_scale), hn, ci,
+                            cfg, tp=tp)
+                    else:
+                        y, _ = L.mamba_decode(
+                            sp["mamba"], hn, ci, cfg, lora=lo,
+                            lora_scale=lora_scale, lora_idx=adapter_idx,
+                            lora_kernel=lora_kernel, tp=tp)
+                elif "mla" in sp:
+                    y, _ = L.mla_decode_batch(
+                        sp["mla"], hn, ci, cfg, pos=pos, valid=valid,
+                        lora=_sub_lora(lt, f"{pre}.mla"),
                         lora_scale=lora_scale, lora_idx=adapter_idx,
-                        lora_kernel=lora_kernel, tp=tp)
-            elif "mla" in sp:
-                y, _ = L.mla_decode_batch(
-                    sp["mla"], hn, ci, cfg, pos=pos, valid=valid,
-                    lora=_sub_lora(lt, f"{pre}.mla"), lora_scale=lora_scale,
-                    lora_idx=adapter_idx, lora_kernel=lora_kernel, tp=tp,
-                    cache_axis=cache_axis, score_axis=score_axis)
-            else:
-                mixer = "cross" if "cross" in sp else "attn"
-                y, _ = L.attention_decode_batch(
-                    sp[mixer], hn, ci, cfg, kind=kind, pos=pos, valid=valid,
-                    lora=_sub_lora(lt, f"{pre}.{mixer}"),
-                    lora_scale=lora_scale, lora_idx=adapter_idx,
-                    lora_kernel=lora_kernel, chunked=chunked, tp=tp,
-                    cache_axis=None if mixer == "cross" else cache_axis)
+                        lora_kernel=lora_kernel, tp=tp,
+                        cache_axis=cache_axis, score_axis=score_axis)
+                else:
+                    mixer = "cross" if "cross" in sp else "attn"
+                    y, _ = L.attention_decode_batch(
+                        sp[mixer], hn, ci, cfg, kind=kind, pos=pos,
+                        valid=valid, lora=_sub_lora(lt, f"{pre}.{mixer}"),
+                        lora_scale=lora_scale, lora_idx=adapter_idx,
+                        lora_kernel=lora_kernel, chunked=chunked, tp=tp,
+                        cache_axis=None if mixer == "cross" else cache_axis)
             h = h + y
             if "dec_cross" in sp:
                 hx = L.rms_norm(h, sp["lnx"], cfg.norm_eps)
@@ -748,17 +757,20 @@ def decode_chunk(cfg: ModelConfig, params: Tree, cache: Tree, embeds, pos, *,
                     lora=_sub_lora(lt, f"{pre}.dec_cross"),
                     lora_scale=lora_scale, tp=tp)
                 h = h + y
-            h, _ = _feed_forward(cfg, sp, h, tp)
+            if "moe" in sp or "ffn" in sp:
+                with span("moe" if "moe" in sp else "ffn"):
+                    h, _ = _feed_forward(cfg, sp, h, tp)
     if not logits:
         return None, cache
-    x = L.rms_norm(h, params["final_ln"], cfg.norm_eps)
-    if tp is not None:
-        return tp.logits(x[:, 0], params).float(), cache
-    if cfg.tie_embeddings:
-        out = x[:, 0] @ params["embed"].T
-    else:
-        out = x[:, 0] @ params["unembed"]
-    return out.float(), cache
+    with span("serve_head"):
+        x = L.rms_norm(h, params["final_ln"], cfg.norm_eps)
+        if tp is not None:
+            return tp.logits(x[:, 0], params).float(), cache
+        if cfg.tie_embeddings:
+            out = x[:, 0] @ params["embed"].T
+        else:
+            out = x[:, 0] @ params["unembed"]
+        return out.float(), cache
 
 
 __all__ = ["decode_chunk", "decode_step", "encode", "forward", "init_cache",

@@ -83,7 +83,7 @@ from repro_torch.models.config import ModelConfig
 from repro_torch.models.tensor_parallel import TensorParallel
 from repro_torch.serving.adapter_store import (AdapterQuarantinedError,
                                                AdapterStore)
-from repro_torch.telemetry import Telemetry
+from repro_torch.telemetry import Telemetry, span
 
 Tree = Any
 _UIDS = itertools.count()
@@ -340,51 +340,55 @@ class ServingEngine:
         def serve_step(params, adapters, state, cache):
             pos, plen, tlen = state["pos"], state["plen"], state["tlen"]
             last = state["last"]
-            active = pos < tlen
             # ---- per-slot input mux: prefix vector | prompt token | last --
-            tok_pos = (pos - n_prefix).clamp(0, Sp - 1)
-            prompt_tok = torch.gather(state["ptoks"], 1, tok_pos[:, None])[:, 0]
-            tok = torch.where(pos < plen, prompt_tok, last)
-            embeds = (params["embed"][tok] if tp is None        # [B, d]
-                      else tp.embed(params["embed"], tok))
-            if n_prefix:
-                pre = state["vis"][rows, pos.clamp(0, n_prefix - 1)]
-                embeds = torch.where((pos < n_prefix)[:, None],
-                                     pre.to(embeds.dtype), embeds)
+            with span("serve_embed"):
+                active = pos < tlen
+                tok_pos = (pos - n_prefix).clamp(0, Sp - 1)
+                prompt_tok = torch.gather(state["ptoks"], 1,
+                                          tok_pos[:, None])[:, 0]
+                tok = torch.where(pos < plen, prompt_tok, last)
+                embeds = (params["embed"][tok] if tp is None    # [B, d]
+                          else tp.embed(params["embed"], tok))
+                if n_prefix:
+                    pre = state["vis"][rows, pos.clamp(0, n_prefix - 1)]
+                    embeds = torch.where((pos < n_prefix)[:, None],
+                                         pre.to(embeds.dtype), embeds)
             # ---- batched multi-adapter decode (per-row adapter + pos) -----
             logits, _ = serve(params, adapters, state["aidx"], cache, embeds,
                               pos)
-            # ---- fault containment: non-finite rows flagged, token 0 ------
-            bad = ~torch.isfinite(logits).all(dim=-1)
-            if tp is not None:                  # any rank's vocab columns
-                bad = tp.any(bad)
-            fault = state["fault"] | (bad & active)
-            if sampling is None:
-                nxt = (torch.argmax(logits, dim=-1) if tp is None
-                       else tp.argmax(logits))
-            else:
-                if tp is not None:
-                    logits = tp.full_logits(logits)
-                lg = logits / sampling.temperature
-                if sampling.top_k:
-                    kth = torch.topk(lg, sampling.top_k, dim=-1)[0][:, -1:]
-                    lg = torch.where(lg >= kth, lg, -1e30)
-                # Gumbel-max with counter-based noise: key(seed, uid) mixed
-                # with the row's position, then with each token id
-                key = _mix32(state["rng"] ^ _mix32(pos & _M32))
-                h = _mix32((key[:, None] + vocab[None, :] * 0x9E3779B1) & _M32)
-                u = ((h >> 8).float() + 0.5) * 2.0 ** -24
-                nxt = torch.argmax(lg - torch.log(-torch.log(u)), dim=-1)
-            nxt = torch.where(fault, 0, nxt)
-            # ---- emit into the slot's generation buffer -------------------
-            g = pos - (plen - 1)                # generated-token index
-            ok = active & (g >= 0) & (g < max_gen)
-            cg = g.clamp(0, max_gen - 1)
-            gen = state["gen"]
-            gen[rows, cg] = torch.where(ok, nxt, gen[rows, cg])
-            state["last"] = torch.where(ok, nxt, last)
-            state["fault"] = fault
-            pos += active
+            with span("serve_head"):
+                # ---- fault containment: non-finite rows flagged, token 0 --
+                bad = ~torch.isfinite(logits).all(dim=-1)
+                if tp is not None:                  # any rank's vocab columns
+                    bad = tp.any(bad)
+                fault = state["fault"] | (bad & active)
+                if sampling is None:
+                    nxt = (torch.argmax(logits, dim=-1) if tp is None
+                           else tp.argmax(logits))
+                else:
+                    if tp is not None:
+                        logits = tp.full_logits(logits)
+                    lg = logits / sampling.temperature
+                    if sampling.top_k:
+                        kth = torch.topk(lg, sampling.top_k, dim=-1)[0][:, -1:]
+                        lg = torch.where(lg >= kth, lg, -1e30)
+                    # Gumbel-max with counter-based noise: key(seed, uid)
+                    # mixed with the row's position, then with each token id
+                    key = _mix32(state["rng"] ^ _mix32(pos & _M32))
+                    h = _mix32((key[:, None] + vocab[None, :] * 0x9E3779B1)
+                               & _M32)
+                    u = ((h >> 8).float() + 0.5) * 2.0 ** -24
+                    nxt = torch.argmax(lg - torch.log(-torch.log(u)), dim=-1)
+                nxt = torch.where(fault, 0, nxt)
+                # ---- emit into the slot's generation buffer ---------------
+                g = pos - (plen - 1)                # generated-token index
+                ok = active & (g >= 0) & (g < max_gen)
+                cg = g.clamp(0, max_gen - 1)
+                gen = state["gen"]
+                gen[rows, cg] = torch.where(ok, nxt, gen[rows, cg])
+                state["last"] = torch.where(ok, nxt, last)
+                state["fault"] = fault
+                pos += active
             return state, cache
 
         return serve_step
@@ -639,7 +643,16 @@ class ServingEngine:
     # ------------------------------------------------------------ driving
     def step(self) -> list[dict]:
         """Admit → one decode step → retire.  Returns the requests that
-        completed this step (admission-time quarantine failures included)."""
+        completed this step (admission-time quarantine failures included).
+        The telemetry is current for the step, so the layers it launches
+        record their spans (``serve_embed``, each layer's ``mamba_mixer`` /
+        ``attn_mixer`` and ``moe``, ``bgmv`` inside a mixer, ``serve_head``)
+        under ``serve_step``, and a chunked prefill's under
+        ``serve_prefill``."""
+        with self.telemetry.current():
+            return self._step()
+
+    def _step(self) -> list[dict]:
         self._admit_pending()
         failed, self._admit_failed = self._admit_failed, []
         busy = self.busy_slots

@@ -34,26 +34,39 @@ from repro_torch.federated import FederatedTrainer as TTrainer  # noqa: E402
 from repro_torch.interop import load_reference_state  # noqa: E402
 from repro_torch.optim import OptimizerConfig as TOpt  # noqa: E402
 from repro_torch.serving import AdapterStore  # noqa: E402
+from repro_torch.telemetry import Telemetry, span  # noqa: E402
+from repro_torch.telemetry.trace import _NULL_SPAN  # noqa: E402
+from test_torch_serving import span_parents  # noqa: E402
 
 LR, STEPS, ROUNDS = 3e-3, 2, 2
 SIZES = np.array([40, 50, 60])
 
 
+def _fed(aggregator, **kw):
+    return dict(num_clients=3, sample_rate=1.0, ranks=(4, 8, 16),
+                local_steps=STEPS, batch_size=4, aggregator=aggregator, **kw)
+
+
+def _port(aggregator, telemetry=None, **kw):
+    """The port's trainer on the synthetic corpus, at its own seed-0
+    state."""
+    t_clients, t_gtest = TD.make_federated_datasets(TD.SyntheticTaskConfig(),
+                                                    3, SIZES)
+    return TTrainer(
+        t_config("fedbench-tiny"), TFed(edit=TEdit(), **_fed(aggregator, **kw)),
+        TOpt(peak_lr=LR, total_steps=50), t_clients, t_clients, t_gtest,
+        seed=0, device="cpu", telemetry=telemetry)
+
+
 def _pair(aggregator, **kw):
     """(reference trainer, port trainer) on identical corpora and state."""
     clients, gtest = make_federated_datasets(SyntheticTaskConfig(), 3, SIZES)
-    t_clients, t_gtest = TD.make_federated_datasets(TD.SyntheticTaskConfig(),
-                                                    3, SIZES)
-    fed = dict(num_clients=3, sample_rate=1.0, ranks=(4, 8, 16),
-               local_steps=STEPS, batch_size=4, aggregator=aggregator, **kw)
     ref = FederatedTrainer(
-        get_config("fedbench-tiny"), FederatedConfig(edit=EditConfig(), **fed),
+        get_config("fedbench-tiny"),
+        FederatedConfig(edit=EditConfig(), **_fed(aggregator, **kw)),
         OptimizerConfig(peak_lr=LR, total_steps=50), clients, clients, gtest,
         seed=0)
-    port = TTrainer(
-        t_config("fedbench-tiny"), TFed(edit=TEdit(), **fed),
-        TOpt(peak_lr=LR, total_steps=50), t_clients, t_clients, t_gtest,
-        seed=0, device="cpu")
+    port = _port(aggregator, **kw)
     load_reference_state(
         port, base_params=jax.device_get(ref.base_params),
         global_lora=jax.device_get(ref.server.global_lora),
@@ -148,3 +161,45 @@ def test_unported_options_raise():
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="CUDA"):
             TTrainer(*args, TFed(**fed), *rest)
+
+
+def test_round_spans_off_change_nothing_and_record_nothing():
+    """A fused ``fedilora_kernel`` round with tracing off and on: the same
+    record, global and client adapters bit for bit and the same dispatch
+    counts; the disabled tracer records nothing and no tracer stays
+    current after the round."""
+    runs = {}
+    for on in (False, True):
+        tel = Telemetry(enabled=on)
+        port = _port("fedilora_kernel", telemetry=tel)
+        rec = port.run_round()
+        runs[on] = (rec, dict(port.dispatch_count), port.server.global_lora,
+                    port.stacked_lora, tel.tracer)
+    (rec0, disp0, glob0, stk0, off), (rec1, disp1, glob1, stk1, _) = (
+        runs[False], runs[True])
+    assert rec0 == rec1 and disp0 == disp1
+    for a, b in ((glob0, glob1), (stk0, stk1)):
+        for n in a:
+            for m in ("A", "B"):
+                assert torch.equal(a[n][m], b[n][m]), (n, m)
+    assert off.n_recorded == 0 and not off.counts and not off.events()
+    assert span("fwd_bwd") is _NULL_SPAN
+
+
+def test_round_spans_nest_inside_round_step():
+    """With tracing on, the round's phases record under ``round_step``:
+    one ``batch_gather``, ``fwd_bwd`` and ``optimizer`` once per local
+    step of each client, ``edit``, ``aggregate`` (holding ``dim_agg``)
+    and ``scatter``."""
+    tel = Telemetry(enabled=True)
+    port = _port("fedilora_kernel", telemetry=tel)
+    port.run_round()
+    counts, parents = tel.tracer.counts, span_parents(tel.tracer.events())
+    local = len(SIZES) * STEPS
+    want = {"batch_gather": 1, "fwd_bwd": local, "optimizer": local,
+            "edit": 1, "aggregate": 1, "dim_agg": 1, "scatter": 1}
+    for name, n in want.items():
+        assert counts[name] == n, name
+        assert parents[name] == {"aggregate" if name == "dim_agg"
+                                 else "round_step"}, name
+    assert parents["round_step"] == {"round"}

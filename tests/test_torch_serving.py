@@ -29,7 +29,8 @@ from repro_torch.interop import (adapters_from_numpy,  # noqa: E402
 from repro_torch.serving import (AdapterQuarantinedError,  # noqa: E402
                                  AdapterStore, Request, SamplingConfig,
                                  ServingEngine)
-from repro_torch.telemetry import Telemetry  # noqa: E402
+from repro_torch.telemetry import Telemetry, span  # noqa: E402
+from repro_torch.telemetry.trace import _NULL_SPAN  # noqa: E402
 
 RANKS = (4, 8, 16, 8, 4)
 BANK_SLOTS, RANK, SCALE = 2, 16, 2.0
@@ -180,11 +181,11 @@ def test_sampling_top1_is_greedy_and_reproducible():
 
 
 def test_reset_cancel_and_telemetry():
-    """Cancelling launches nothing; spans (bridged to the torch profiler)
-    count exactly the dispatches; reset empties the engine."""
+    """Cancelling launches nothing; spans count exactly the dispatches;
+    reset empties the engine."""
     name = "qwen2-0.5b"
     _, tree, adapters, reqs = _world(name)
-    tel = Telemetry(enabled=True, annotate=True)
+    tel = Telemetry(enabled=True)
     eng = _port_engine(name, tree, adapters, prefill_chunk=4, telemetry=tel)
     rs = [Request(a, p, 6, vision=v) for a, p, _, v in reqs]
     for r in rs:
@@ -204,6 +205,75 @@ def test_reset_cancel_and_telemetry():
     eng.reset()
     assert not eng.dispatch_count and not eng.busy_slots and not eng.queue
     assert int(eng._state["tlen"].abs().sum()) == 0
+
+
+def span_parents(events) -> dict:
+    """``{span name: the names of the spans it ran directly inside}``
+    (``None`` for an outermost one) from a tracer's events."""
+    stack, out = [], collections.defaultdict(set)
+    for name, _, t0, t1, depth, _ in sorted(
+            (e for e in events if e[3] is not None),
+            key=lambda e: (e[2], e[4])):
+        while stack and stack[-1][1] >= depth:
+            stack.pop()
+        out[name].add(stack[-1][0] if stack else None)
+        stack.append((name, depth))
+    return out
+
+
+@pytest.fixture(scope="module")
+def hybrid():
+    from test_torch_families_serving import _setup
+    return _setup("jamba")
+
+
+def _hybrid_run(hybrid, telemetry):
+    """The tiny hybrid stack (one Mamba sublayer with a SwiGLU, one
+    attention sublayer with an MoE) served through BGMV."""
+    _, tc, _, port, adapters, reqs = hybrid
+    store = AdapterStore(slots=BANK_SLOTS, rank=RANK, device="cpu")
+    for t, (a, r) in adapters.items():
+        store.register(t, adapters_from_numpy(a), r)
+    eng = ServingEngine(tc, port, store, device="cpu",
+                        lora_backend="grouped", telemetry=telemetry,
+                        **ENGINE_KW)
+    done = eng.run([Request(a, p, g, uid=3000 + i)
+                    for i, (a, p, g) in enumerate(reqs)])
+    return eng, {d["uid"]: d["tokens"].tolist() for d in done}
+
+
+def test_layer_spans_off_change_nothing_and_record_nothing(hybrid):
+    """Serving with tracing off and on gives the same tokens, the same
+    dispatch counts and the same cache bit for bit; the disabled tracer
+    records nothing and no tracer stays current after a step."""
+    off, on = Telemetry(enabled=False), Telemetry(enabled=True)
+    e0, t0 = _hybrid_run(hybrid, off)
+    e1, t1 = _hybrid_run(hybrid, on)
+    assert t0 == t1 and dict(e0.dispatch_count) == dict(e1.dispatch_count)
+    for pre, entry in e0._cache.items():
+        for k, c in entry.items():
+            assert torch.equal(c, e1._cache[pre][k]), (pre, k)
+    assert off.tracer.n_recorded == 0 and not off.tracer.counts
+    assert not off.tracer.events() and on.tracer.counts["bgmv"] > 0
+    assert span("bgmv") is _NULL_SPAN
+
+
+def test_layer_spans_nest_inside_the_step(hybrid):
+    """Each engine step records its layers under ``serve_step``: the
+    embedding, each sublayer's mixer and feed-forward, ``serve_head``
+    twice (the model's unembed, the engine's sampling and emit) and BGMV
+    at each banked site inside the mixer that calls it."""
+    tel = Telemetry(enabled=True)
+    eng, _ = _hybrid_run(hybrid, tel)
+    counts, parents = tel.tracer.counts, span_parents(tel.tracer.events())
+    assert counts["serve_step"] == eng.steps > 0
+    per_step = {"serve_embed": 1, "mamba_mixer": 1, "attn_mixer": 1,
+                "ffn": 1, "moe": 1, "serve_head": 2, "bgmv": 4}
+    for name, n in per_step.items():
+        assert counts[name] == n * eng.steps, name
+        assert parents[name] == ({"mamba_mixer", "attn_mixer"}
+                                 if name == "bgmv" else {"serve_step"}), name
+    assert parents["serve_step"] == {None}
 
 
 def test_failed_page_in_propagates_and_leaves_adapter_cold():
