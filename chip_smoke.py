@@ -265,6 +265,7 @@ wall) goes to ``build/chip_smoke.json``.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import json
 import math
@@ -284,7 +285,12 @@ KERNEL_SHAPES = [(16, 896, 896), (16, 896, 128), (512, 896, 896),
 N_TENANTS, RANKS, BANK_SLOTS = 12, (8, 16, 32, 64), 8
 KERNEL_SOURCES = ("grouped_lora_matmul", "dim_agg", "lora_matmul",
                   "lora_matmul_wgmma", "flash_attention",
-                  "flash_attention_wgmma")
+                  "flash_attention_wgmma", "moe")
+# the fused MoE's case: the Granite 4.0-H serve cell's MoE layer (T 128
+# slots, d 4096, E 72, top-10, experts of 768, one shared expert of 1536,
+# bf16) at its capacity factor E/K (nothing dropped) and at 0.5 (drops)
+MOE_SHAPE = (128, 4096, 72, 10, 768, 1536)
+MOE_CAPACITY_FACTORS = (7.2, 0.5)
 # every compiled BGMV instance at small ragged shapes (checked, not timed):
 # (M, K, N, r) over each pairing of x/W and bank types; M <= 64 takes the
 # decode tiling, M > 64 the prefill tiling; K or N not a multiple of 8
@@ -1560,6 +1566,106 @@ def serve(cfg, params, adapters, requests, *, backend: str):
     done = eng.run(requests)
     torch.cuda.synchronize()
     return eng, store, done, time.perf_counter() - t0
+
+
+def phase_moe(dev_name: str) -> dict:
+    """The fused MoE's kernels (``kernels/moe.py``, ``csrc/moe.cu``)
+    against their plain version ``moe_fused_ref`` on the same router
+    logits at ``MOE_SHAPE``, at each of ``MOE_CAPACITY_FACTORS``: the
+    router's integers (ids, places, drops) equal, ``y`` within two bf16
+    steps (2^-7 of the largest output each: the two round h and each pick's
+    output once after f32 sums in another order), the same bits on a
+    second call.  Then the kernels timed beside their plain version, the
+    plain dispatch (``layers.moe_forward`` with gradients on) and the
+    bound (every routed expert's weights and the shared one's read once)."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import moe as MK
+    from repro_torch.launch.roofline import peaks_for
+    from repro_torch.models import layers as L
+    from repro_torch.models.config import MoEConfig
+
+    bw, peak_bf16, _ = peaks_for(dev_name)
+    T, d, E, K, ff, ffs = MOE_SHAPE
+    g = torch.Generator(device="cuda").manual_seed(0)
+
+    def nrm(*shape, dtype=torch.bfloat16):
+        return (torch.randn(shape, generator=g, device="cuda")
+                * shape[-2] ** -0.5).to(dtype)
+
+    p = {"router": nrm(d, E, dtype=torch.float32), "w1": nrm(E, d, ff),
+         "w3": nrm(E, d, ff), "w2": nrm(E, ff, d),
+         "shared": {"w1": nrm(d, ffs), "w3": nrm(d, ffs),
+                    "w2": nrm(ffs, d)}}
+    x = torch.randn((T, d), generator=g, device="cuda").to(torch.bfloat16)
+    logits = x.float() @ p["router"]
+    cases = []
+    for cf in MOE_CAPACITY_FACTORS:
+        cfg = dataclasses.replace(
+            get_config("deepseek-v2-236b"), d_model=d, moe=MoEConfig(
+                num_experts=E, experts_per_token=K, d_ff_expert=ff,
+                num_shared_experts=1, d_ff_shared=ffs, capacity_factor=cf))
+        kw = dict(top_k=K, capacity=L.moe_capacity(cfg, T),
+                  aux_coef=cfg.moe.aux_loss_coef)
+        MK.reset_launches()
+        with torch.no_grad():
+            y, aux, route = MK.moe_fused_cuda(x, logits, p, route=True, **kw)
+            y2, _ = MK.moe_fused_cuda(x, logits, p, **kw)
+            ry, raux, rroute = MK.moe_fused_ref(x, logits, p, route=True,
+                                                **kw)
+        torch.cuda.synchronize()
+        what = f"moe T {T} d {d} E {E} top-{K} capacity factor {cf}"
+        for k in ("ids", "pos", "kept"):
+            if not torch.equal(route[k].long(), rroute[k].long()):
+                raise AssertionError(f"{what}: {k} differ from the plain "
+                                     "version's")
+        kept = int(route["kept"].sum())
+        if (kept < T * K) != (cf < E / K) or MK.launches != 2:
+            raise AssertionError(f"{what}: {kept} of {T * K} picks kept, "
+                                 f"{MK.launches} fused calls")
+        scale = ry.float().abs().max().item()
+        err = (y.float() - ry.float()).abs().max().item()
+        tol = 2 * 2 ** -7 * scale
+        if not err <= tol or not torch.equal(y, y2) or \
+                abs(aux.item() - raux.item()) > 1e-6:
+            raise AssertionError(f"{what}: max err {err:.3e} (limit "
+                                 f"{tol:.3e}), second call equal "
+                                 f"{torch.equal(y, y2)}, aux {aux.item()} "
+                                 f"vs {raux.item()}")
+        case = {"capacity_factor": cf, "capacity": kw["capacity"],
+                "kept": kept, "picks": T * K, "max_abs_err": err,
+                "tol": tol, "bit_equal_second_call": True}
+        if cf == MOE_CAPACITY_FACTORS[0]:
+            sets = [()]
+            with torch.no_grad():
+                case["ms"] = cuda_time_ms(
+                    lambda: MK.moe_fused_cuda(x, logits, p, **kw), sets)
+                case["plain_ms"] = cuda_time_ms(
+                    lambda: MK.moe_fused_ref(x, logits, p, **kw), sets,
+                    iters=5, warmup=1)
+            with torch.enable_grad():
+                case["library_ms"] = cuda_time_ms(
+                    lambda: L.moe_forward(p, x[None], cfg), sets, iters=20)
+            hit = int(torch.unique(route["ids"][route["kept"]]).numel())
+            nbytes = ((hit * 3 * d * ff + 3 * d * ffs) * 2 + T * E * 4
+                      + 2 * T * d * 2)
+            case.update(experts_hit=hit, **_bound(
+                nbytes, 2 * T * 3 * d * (K * ff + ffs), bw, peak_bf16))
+            case["pct_of_bound"] = 100 * case["bound_ms"] / case["ms"]
+        cases.append(case)
+        print(f"kernel {what}: {kept} of {T * K} picks kept, err "
+              f"{err:.3e} (limit {tol:.3e}), equal on a second call"
+              + (f"; kernels {case['ms']:.4f} ms, plain version "
+                 f"{case['plain_ms']:.4f} ms, plain dispatch "
+                 f"{case['library_ms']:.4f} ms, bound "
+                 f"{case['bound_ms']:.4f} ms ({case['bound_by']}, "
+                 f"{case['pct_of_bound']:.1f} %)" if "ms" in case else ""),
+              flush=True)
+    return {"shape": dict(zip(("T", "d", "E", "top_k", "ff", "ff_shared"),
+                              MOE_SHAPE)), "cases": cases}
 
 
 def phase_serve() -> dict:
@@ -3124,6 +3230,7 @@ def phase_families() -> dict:
     import torch
 
     from repro_torch.kernels import grouped_lora_matmul as glm
+    from repro_torch.kernels import moe as MK
     from repro_torch.models.transformer import init_params
 
     out = {}
@@ -3142,13 +3249,24 @@ def phase_families() -> dict:
                             prefill_chunk=chunk)
         torch.cuda.synchronize()
         glm.reset_launches()
+        MK.reset_launches()
         t0 = time.perf_counter()
         done = eng.run(reqs)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
         launches = glm.launches
+        moe_launches, moe_plain = MK.launches, MK.plain
         dc = eng.dispatch_count
         calls = dc["serve_step"] + dc["serve_prefill"]
+        # every MoE layer of every decode step on the fused kernels; a
+        # prefill chunk's on them where the gate finds them faster
+        n_moe = sum(map(cfg.is_moe_layer, range(cfg.num_layers)))
+        if (moe_launches + moe_plain != n_moe * calls
+                or moe_launches < n_moe * dc["serve_step"]):
+            raise AssertionError(f"{name}: {moe_launches} fused MoE calls "
+                                 f"and {moe_plain} plain for {n_moe} MoE "
+                                 f"layers x {calls} calls, "
+                                 f"{dc['serve_step']} of them decode steps")
         by_uid = {d["uid"]: d for d in done}
         for q in reqs:
             d = by_uid[q.uid]
@@ -3191,6 +3309,8 @@ def phase_families() -> dict:
                "evictions": eng.store.evictions, "wall_s": wall,
                "generated_tokens": tokens, "tokens_per_s": tokens / wall,
                "launches": launches, "bgmv_sites_per_block": sites,
+               "moe_launches": moe_launches, "moe_plain": moe_plain,
+               "moe_layers": n_moe,
                "peak_mem_gb": peak, "profile": prof}
         print(f"families: {name} bf16 {cfg.num_layers} of {published} "
               f"layers, d_model {cfg.d_model}, {n_params / 1e9:.2f} B "
@@ -3198,7 +3318,8 @@ def phase_families() -> dict:
               f"serve/prefill calls, {eng.store.loads} page-ins, "
               f"{wall:.2f} s wall, {tokens / wall:.1f} generated tokens/s, "
               f"{launches} BGMV calls ({sites} sites x {cfg.num_blocks} "
-              f"blocks x {calls}), peak {peak:.1f} GB", flush=True)
+              f"blocks x {calls}), {moe_launches} fused MoE calls and "
+              f"{moe_plain} plain, peak {peak:.1f} GB", flush=True)
         del eng, peng, params
         gc.collect()
         torch.cuda.empty_cache()
@@ -4385,29 +4506,31 @@ def _mesh_families_rank(rank: int, world: int, rdv: str, out_path: str,
     one = world == 1
     res = {"ran": []}
     try:
-        for part in parts:
-            t0 = time.perf_counter()
-            if part == "rounds":
-                meshes = ({"client x model(1x1)": Mesh(
-                    (1, 1), ("client", "model"))} if one else
-                    {"client x model(2x2)": Mesh((2, 2), ("client",
-                                                          "model"))})
-                res[part] = {name: _family_round_runs(
-                    name, layers if one else f32, "bfloat16" if one
-                    else "float32", meshes, exact=one)
-                    for name, layers, f32 in MESH_FAMILIES}
-            elif part == "serve":
-                meshes = {f"data x model(1x{world})": Mesh(
-                    (1, world), ("data", "model"))}
-                res[part] = {name: _family_serve_runs(
-                    name, layers if one else f32, "bfloat16" if one
-                    else "float32", meshes)
-                    for name, layers, f32 in MESH_FAMILIES
-                    if name in MESH_SERVED}
-            elif part == "jamba":
-                res[part] = _jamba_uncut(Mesh((1, world), ("data", "model")))
-            res["ran"].append(part)
-            res.setdefault("wall_s", {})[part] = time.perf_counter() - t0
+        with _plain_moe_dispatch():
+            for part in parts:
+                t0 = time.perf_counter()
+                if part == "rounds":
+                    meshes = ({"client x model(1x1)": Mesh(
+                        (1, 1), ("client", "model"))} if one else
+                        {"client x model(2x2)": Mesh((2, 2), ("client",
+                                                              "model"))})
+                    res[part] = {name: _family_round_runs(
+                        name, layers if one else f32, "bfloat16" if one
+                        else "float32", meshes, exact=one)
+                        for name, layers, f32 in MESH_FAMILIES}
+                elif part == "serve":
+                    meshes = {f"data x model(1x{world})": Mesh(
+                        (1, world), ("data", "model"))}
+                    res[part] = {name: _family_serve_runs(
+                        name, layers if one else f32, "bfloat16" if one
+                        else "float32", meshes)
+                        for name, layers, f32 in MESH_FAMILIES
+                        if name in MESH_SERVED}
+                elif part == "jamba":
+                    res[part] = _jamba_uncut(Mesh((1, world),
+                                                  ("data", "model")))
+                res["ran"].append(part)
+                res.setdefault("wall_s", {})[part] = time.perf_counter() - t0
         res["held"] = {k: dict(v, shapes=sorted(v["shapes"]))
                        for k, v in held.items()}
         if rank == 0:
@@ -4478,6 +4601,31 @@ def _parting_note(v: dict) -> str:
             f"{p['call']} of {p['of']}, {p['picks']} picks, probability gaps"
             f" up to {p['gap']:.2e}: near ties; the runs not held to each "
             "other)")
+
+
+@contextlib.contextmanager
+def _plain_moe_dispatch():
+    """Every MoE layer of this process on the plain dispatch, for a mesh
+    rank's unmeshed runs: a mesh always takes it (``layers.moe_takes_fused``
+    wants no ``tp``), and the mesh_families and placements ranks hold a
+    mesh of world size 1 to the unmeshed run bit for bit.
+    ``torch.enable_grad()`` at the call site cannot do this: the serve,
+    prefill and generate steps and the engine turn gradients off
+    themselves.  The counters prove the switch held (no fused call); the
+    fused route is held against the plain dispatch by the ``moe`` phase and
+    ``tests/test_torch_moe_card.py``."""
+    from repro_torch.kernels import moe as MK
+    from repro_torch.models import layers
+    fused = layers.moe_takes_fused
+    layers.moe_takes_fused = lambda x, tp, cfg: False
+    MK.reset_launches()
+    try:
+        yield
+    finally:
+        layers.moe_takes_fused = fused
+    if MK.launches:
+        raise AssertionError(f"{MK.launches} fused MoE calls in a mesh rank "
+                             "kept on the plain dispatch")
 
 
 def phase_mesh_families(dev_name: str) -> dict:
@@ -5168,37 +5316,42 @@ def _placements_rank(rank: int, world: int, rdv: str, out_path: str,
     one = world == 1
     res = {"runs": {}}
     try:
-        mesh = Mesh((1, 1) if one else (2, 2), ("data", "model"))
-        for arch, layers, layers_four, steps, modes in PLACEMENT_RUNS:
-            cfg = _family_cfg(arch, layers if one else layers_four)
-            if not one:
-                cfg = dataclasses.replace(cfg, dtype="float32")
-                if cfg.moe is not None:
-                    cfg = dataclasses.replace(cfg, moe=dataclasses.replace(
-                        cfg.moe, num_experts=4,
-                        experts_per_token=min(cfg.moe.experts_per_token, 2)))
-            params = init_params(cfg, seed=3)
-            lora = _cuda_adapter(cfg, 5)
-            t0 = time.perf_counter()
-            want = _placement_steps(cfg, params, lora,
-                                    None if one else mesh, "baseline", steps)
-            walls = {"reference": time.perf_counter() - t0}
-            colls = {}
-            for mode in modes:
-                mesh.reset_collectives()
+        with _plain_moe_dispatch():
+            mesh = Mesh((1, 1) if one else (2, 2), ("data", "model"))
+            for arch, layers, layers_four, steps, modes in PLACEMENT_RUNS:
+                cfg = _family_cfg(arch, layers if one else layers_four)
+                if not one:
+                    cfg = dataclasses.replace(cfg, dtype="float32")
+                    if cfg.moe is not None:
+                        cfg = dataclasses.replace(
+                            cfg, moe=dataclasses.replace(
+                                cfg.moe, num_experts=4,
+                                experts_per_token=min(
+                                    cfg.moe.experts_per_token, 2)))
+                params = init_params(cfg, seed=3)
+                lora = _cuda_adapter(cfg, 5)
                 t0 = time.perf_counter()
-                got = _placement_steps(cfg, params, lora, mesh, mode, steps)
-                walls[mode] = time.perf_counter() - t0
-                colls[mode] = collective_bytes(mesh)["counts"]
-                if one:
-                    _equal_trees(got, want, f"{arch} {mode}")
-                else:
-                    _close_trees(got, want, f"{arch} {mode}")
-            res["runs"][arch] = {"layers": cfg.num_layers, "steps": steps,
-                                 "modes": list(modes), "walls": walls,
-                                 "collectives": colls}
-            del params
-            torch.cuda.empty_cache()
+                want = _placement_steps(cfg, params, lora,
+                                        None if one else mesh, "baseline",
+                                        steps)
+                walls = {"reference": time.perf_counter() - t0}
+                colls = {}
+                for mode in modes:
+                    mesh.reset_collectives()
+                    t0 = time.perf_counter()
+                    got = _placement_steps(cfg, params, lora, mesh, mode,
+                                           steps)
+                    walls[mode] = time.perf_counter() - t0
+                    colls[mode] = collective_bytes(mesh)["counts"]
+                    if one:
+                        _equal_trees(got, want, f"{arch} {mode}")
+                    else:
+                        _close_trees(got, want, f"{arch} {mode}")
+                res["runs"][arch] = {"layers": cfg.num_layers, "steps": steps,
+                                     "modes": list(modes), "walls": walls,
+                                     "collectives": colls}
+                del params
+                torch.cuda.empty_cache()
         if rank == 0:
             with open(out_path, "w") as f:
                 json.dump(res, f, default=float)
@@ -5379,9 +5532,11 @@ def phase_examples() -> dict:
     from repro_torch.examples import EXAMPLES
     from repro_torch.kernels import dim_agg as DK
     from repro_torch.kernels import grouped_lora_matmul as glm
+    from repro_torch.kernels import moe as MK
 
     glm.reset_launches()
     DK.reset_launches()
+    MK.reset_launches()
     out = {}
     for name in EXAMPLES:
         mod = importlib.import_module(f"repro_torch.examples.{name}")
@@ -5396,7 +5551,8 @@ def phase_examples() -> dict:
                      **_example_checks(name, rec)}
         print(f"examples: {' '.join([name, *out[name]['argv']])} "
               f"{wall:.1f} s", flush=True)
-    out["launches"] = {"grouped_lora_matmul": glm.launches, **DK.launches}
+    out["launches"] = {"grouped_lora_matmul": glm.launches, **DK.launches,
+                       "moe": MK.launches}
     if any(out["launches"].values()):
         raise AssertionError(f"the examples launched kernels "
                              f"{out['launches']} on their plain routes")
@@ -5457,6 +5613,7 @@ def main() -> int:
     kern = timed("kernels", phase_kernels, dev_name)
     dagg = timed("dim_agg", phase_dim_agg, dev_name)
     opsr = timed("ops", phase_ops, dev_name)
+    moe = timed("moe", phase_moe, dev_name)
     served = timed("serve", phase_serve)
     agree = timed("agreement", phase_agreement)
     slo = timed("slo", phase_slo)
@@ -5639,6 +5796,27 @@ def main() -> int:
             "bound_ms": h["bound_ms"], "bound_by": h["bound_by"],
             "shape": {"case": head_shape, "dtype": dtype}}
         records.append(rec)
+    # the fused MoE: Granite 4.0-H's layer (``MOE_SHAPE``) at its capacity,
+    # and the families' bf16 serve runs, every MoE layer on the kernels
+    h = moe["cases"][0]
+    moe_paths = {f"families.{k}": v["moe_launches"]
+                 for k, v in families.items() if v["moe_layers"]}
+    if not all(moe_paths.values()):
+        raise AssertionError(f"moe was not launched on every path that runs "
+                             f"it: {moe_paths}")
+    records.append({
+        "name": "moe", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/moe.cu",
+        "replaces": "none: the reference's MoE is jnp "
+                    "(src/repro/models/layers.py, moe_forward)",
+        "launches": sum(moe_paths.values()), "path_launches": moe_paths,
+        "max_abs_err": max(c["max_abs_err"] for c in moe["cases"]),
+        "ms": h["ms"], "plain_ms": h["plain_ms"],
+        "library_ms": h["library_ms"],
+        "library_call": "layers.moe_forward with gradients on: the plain "
+                        "dispatch",
+        "bound_ms": h["bound_ms"], "bound_by": h["bound_by"],
+        "shape": moe["shape"] | {"dtype": "bfloat16"}})
     out_dir = os.path.join(ROOT, "build")
     os.makedirs(out_dir, exist_ok=True)
     with open(os.path.join(out_dir, "chip_smoke.json"), "w") as f:
@@ -5656,7 +5834,7 @@ def main() -> int:
                    "dim_agg_ptxas": regs, "flash_ptxas": flash_regs,
                    "kernel_widths": kern["widths"], "sass": sass,
                    "probe": probe,
-                   "ops": opsr,
+                   "ops": opsr, "moe": moe,
                    "serve": served, "agreement": agree, "slo": slo,
                    "train": trained, "train_agreement": train_agree,
                    "faults": faulted, "timelines": timelines,

@@ -12,7 +12,10 @@ package builds nothing.
   replacing ``lora_matmul_pallas`` (``repro/kernels/lora_matmul.py``);
 * ``flash`` — online-softmax attention with causal and sliding-window
   masks, replacing ``flash_attention_pallas``
-  (``repro/kernels/flash_attention.py``).
+  (``repro/kernels/flash_attention.py``);
+* ``moe`` — the mixture-of-experts feed-forward of inference on one card
+  (routing, grouped expert GEMMs over the routed picks, the combine),
+  replacing no TPU kernel (the reference's MoE is ``jnp``).
 
 Like the reference's package, this one exports ``flash_attention``,
 ``fused_lora_matmul``, ``dimension_wise_aggregate`` and

@@ -21,6 +21,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.core.lora import grouped_lora_matmul, lora_matmul
+from repro_torch.kernels import moe as moe_kernels
 from repro_torch.models.config import ModelConfig
 
 NEG_INF = -1e30
@@ -846,6 +847,21 @@ def _moe_exchange(params, send: torch.Tensor, counts, C: int, tp):
     return back.reshape(E, R, d)
 
 
+def moe_takes_fused(x, tp, cfg: ModelConfig) -> bool:
+    """Whether :func:`moe_forward` takes the fused kernels: bf16 inference
+    on one card, read from its inputs (``x`` [B, S, d] bf16 on a CUDA
+    device, no ``tp``, gradients off), at shapes where the kernels beat
+    the plain dispatch (``kernels.moe.fused_is_faster``: decode-sized
+    batches, small experts, or heavily padded buffers)."""
+    if not (x.is_cuda and x.dtype == torch.bfloat16 and tp is None
+            and not torch.is_grad_enabled()):
+        return False
+    T, mo = x.shape[0] * x.shape[1], cfg.moe
+    return moe_kernels.fused_is_faster(
+        T, mo.experts_per_token, mo.num_experts, moe_capacity(cfg, T),
+        cfg.d_model, mo.d_ff_expert)
+
+
 def moe_forward(params, x, cfg: ModelConfig, tp=None, reduce: bool = True):
     """GShard-style capacity dispatch without a [T, E, C] one-hot: picks
     are copied into expert buffers, every expert runs its SwiGLU over its
@@ -873,13 +889,32 @@ def moe_forward(params, x, cfg: ModelConfig, tp=None, reduce: bool = True):
     their places in its own queue: compacted into tiles of one expert
     each (:func:`_moe_tiles`), or under ``tp.ep`` ``R = min(C, T)`` rows an
     expert, the buffers sent to the experts' owners and back
-    (:func:`_moe_exchange`).  Unsharded, the buffers are ``[E, C, d]``."""
+    (:func:`_moe_exchange`).  Unsharded, the buffers are ``[E, C, d]``.
+
+    The route: bf16 inference on one card — ``x`` bf16 on a CUDA device,
+    no ``tp`` and gradients off (``torch.is_grad_enabled()`` false) — at
+    decode-sized batches, for small experts at any size, or where the
+    buffers below would be padded heavily (:func:`moe_takes_fused`), takes
+    the fused kernels of
+    ``repro_torch.kernels.moe`` after the router's logits (computed here
+    as below): routing, the experts over their kept picks only and the
+    same ascending-expert combine, in at most six launches and no host
+    synchronisation (``kernels.moe.launches`` counts them).  Every other
+    call (training, meshes, f32, large lightly padded prefill chunks of
+    wide experts, the CPU, ``meta`` tensors) takes the plain dispatch
+    below and counts in ``kernels.moe.plain``."""
     mo = cfg.moe
     split = tp is not None and tp.moe
     B, S, d = x.shape
     T = B * S
     E, K = mo.num_experts, mo.experts_per_token
     xf = x.reshape(T, d)
+    if moe_takes_fused(x, tp, cfg):
+        y, aux = moe_kernels.moe_fused_cuda(
+            xf, xf.float() @ params["router"], params, top_k=K,
+            capacity=moe_capacity(cfg, T), aux_coef=mo.aux_loss_coef)
+        return y.reshape(B, S, d), aux
+    moe_kernels.plain += 1
     probs, gates, ids, pos, _ = moe_route(params["router"], xf, cfg)
     _, kept, C, counts = moe_places(ids, pos, cfg, tp)
     one_hot = F.one_hot(ids[:, 0], E).float()
@@ -1150,5 +1185,5 @@ __all__ = ["NEG_INF", "apply_rope", "attention_decode_batch",
            "attention_forward", "cross_kv", "init_attention", "init_mamba", "init_mla",
            "init_mlp", "init_moe", "mamba_decode", "mamba_forward",
            "mla_decode_batch", "mla_forward", "mlp_forward", "moe_capacity",
-           "moe_forward", "moe_places", "moe_route", "multihead_attention", "normal",
-           "rms_norm", "ssd_chunked"]
+           "moe_forward", "moe_places", "moe_route", "moe_takes_fused",
+           "multihead_attention", "normal", "rms_norm", "ssd_chunked"]

@@ -648,8 +648,10 @@ class ServingEngine:
         record their spans (``serve_embed``, each layer's ``mamba_mixer`` /
         ``attn_mixer`` and ``moe``, ``bgmv`` inside a mixer, ``serve_head``)
         under ``serve_step``, and a chunked prefill's under
-        ``serve_prefill``."""
-        with self.telemetry.current():
+        ``serve_prefill``.  The step runs without gradients (nothing here
+        trains), so a bf16 MoE layer on one card can take the fused kernels
+        (``layers.moe_takes_fused``)."""
+        with self.telemetry.current(), torch.no_grad():
             return self._step()
 
     def _step(self) -> list[dict]:
